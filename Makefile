@@ -3,7 +3,7 @@
 
 PY ?= python
 
-.PHONY: test test-fast tpu-smoke bench mesh-probe demo native clean
+.PHONY: test test-fast gpu-tests chip-smoke bench demo native clean
 
 test:  ## full CPU test suite on the 8-device virtual mesh (merge gate)
 	$(PY) -m pytest tests/ -q
@@ -11,14 +11,14 @@ test:  ## full CPU test suite on the 8-device virtual mesh (merge gate)
 test-fast:  ## inner-loop tier: skips the statistically heavy `slow` tests
 	$(PY) -m pytest tests/ -q -m "not slow"
 
-tpu-smoke:  ## compiled-Mosaic parity gate on the real chip (all kernel families)
-	$(PY) -m pytest tests_tpu/ -q
+gpu-tests:  ## GPU tier: compiled Triton kernels vs the XLA engine (needs a GPU)
+	$(PY) -m pytest tests_gpu/ -q
+
+chip-smoke:  ## main path at the reference sizes on one GPU (last line: JSON)
+	$(PY) chip_smoke.py
 
 bench:  ## benchmark harness (one JSON line)
 	$(PY) bench.py
-
-mesh-probe:  ## weak-scaling + psum-cost probe on the (virtual) mesh
-	$(PY) bench_mesh.py | tee MESHSCALE_r05.json
 
 demo:  ## hello.cu-equivalent demo table
 	$(PY) -m mc_tpu demo

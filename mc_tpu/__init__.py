@@ -1,4 +1,4 @@
-"""mc_tpu — TPU-native Monte Carlo option pricing framework.
+"""mc_tpu — Monte Carlo option pricing framework on JAX, for NVIDIA GPUs.
 
 A from-scratch JAX / XLA / Pallas re-design of the capabilities of the CUDA
 reference ``amauryrlm/Monte-Carlo-Project-CUDA`` (see SURVEY.md): European

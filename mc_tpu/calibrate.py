@@ -108,8 +108,10 @@ def calibrate_sabr(f, t, strikes, target_ivs, *, beta: float = 1.0,
         theta, lam = carry
         r = residuals(theta)
         jac = jax.jacfwd(residuals)(theta)          # (M, 3)
-        g = jac.T @ r
-        h = jac.T @ jac
+        # full float32 products: a GPU would otherwise run them in TF32
+        hi = jax.lax.Precision.HIGHEST
+        g = jnp.matmul(jac.T, r, precision=hi)
+        h = jnp.matmul(jac.T, jac, precision=hi)
         step = jnp.linalg.solve(h + lam * eye, g)
         theta_new = theta - step
         better = jnp.sum(residuals(theta_new) ** 2) < jnp.sum(r * r)
@@ -129,7 +131,7 @@ def calibrate_sabr(f, t, strikes, target_ivs, *, beta: float = 1.0,
 # Heston calibration: fit (v0, kappa, theta, xi, rho) to an implied-vol
 # surface through the semi-analytic CF oracle.  Host-side float64 (market-
 # data prep, runs once per surface); the fitted dynamics feed the MC/NMC/
-# LSMC engines, which is where the TPU cycles go.
+# LSMC engines, which is where the device cycles go.
 # ---------------------------------------------------------------------------
 
 

@@ -38,7 +38,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER, _xla_partials
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES, SUBLANES, round_up, use_interpret
+from mc_tpu.ops._pallas import LANES, SUBLANES, resolve_engine, round_up
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -82,7 +82,7 @@ def load_checkpoint(path: str) -> Checkpoint:
                      "model", "kmax"))
 def _chunk_slabs_mesh(payoff, cfg, engine, mesh, interpret, key, params,
                       option, c0, n_total, model="gbm", kmax=0, dyn=None):
-    """One elastic round: chip r computes the (8,128) moment slabs of
+    """One elastic round: device r computes the (8,128) moment slabs of
     chunk c0 + r; the gathered (D, 8, 128) stacks come back in rank
     (= chunk) order."""
     from jax.sharding import PartitionSpec as P
@@ -95,8 +95,7 @@ def _chunk_slabs_mesh(payoff, cfg, engine, mesh, interpret, key, params,
         if model != "gbm":
             from mc_tpu.parallel.models_sharded import _model_def
             params_m, partials = _model_def(model).build(
-                payoff, cfg, option, dyn, cfg.n_steps, engine, interpret,
-                kmax)
+                payoff, cfg, option, dyn, cfg.n_steps, kmax)
             parts = partials(key, params_m, offset, n_total)
         elif engine == "pallas":
             parts = pk.simulate_partials(
@@ -117,13 +116,12 @@ def _chunk_slabs_mesh(payoff, cfg, engine, mesh, interpret, key, params,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("model", "payoff", "cfg", "engine", "interpret",
-                     "kmax", "n_steps"))
-def _model_chunk_slabs(model, payoff, cfg, engine, interpret, kmax,
-                       n_steps, key, option, dyn, offset, bound):
+    static_argnames=("model", "payoff", "cfg", "kmax", "n_steps"))
+def _model_chunk_slabs(model, payoff, cfg, kmax, n_steps, key, option, dyn,
+                       offset, bound):
     from mc_tpu.parallel.models_sharded import _model_def
     params, partials = _model_def(model).build(
-        payoff, cfg, option, dyn, n_steps, engine, interpret, kmax)
+        payoff, cfg, option, dyn, n_steps, kmax)
     return partials(key, params, offset, bound)
 
 
@@ -134,7 +132,7 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
                   chunk_paths: int = 1 << 24,
                   checkpoint_path: Optional[str] = None,
                   resume: bool = False,
-                  engine: str = "pallas",
+                  engine: Optional[str] = None,
                   method: Optional[str] = None,
                   rng_source: str = "threefry13",
                   tile_rows: int = 128,
@@ -142,7 +140,7 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
                   mesh=None,
                   model: str = "gbm",
                   dyn=None,
-                  interpret: Optional[bool] = None) -> PriceResult:
+                  interpret: bool = False) -> PriceResult:
     """Price `sim.n_paths` paths in chunks with optional checkpointing.
 
     The per-chunk (8,128) moment slabs are combined across chunks with the
@@ -155,16 +153,12 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
     recomputable from (seed, offset) under ANY dynamics and resume stays
     bit-identical across mesh sizes.  ``dyn`` defaults to the family's
     demo dynamics; its parameter fingerprint joins the checkpoint meta
-    (resuming under different dynamics fails loudly).
+    (resuming under different dynamics fails loudly).  ``engine`` (as in
+    `price`) runs the GBM chunks; the families run their XLA engines.
     """
     po = get_payoff(payoff)
-    if engine not in ("pallas", "xla"):
-        raise ValueError(f"unknown engine {engine!r}; use 'pallas' or 'xla'")
-    if rng_source not in ("threefry", "threefry13"):
-        # 'hw' is stateful: resumed runs could not be bit-identical to
-        # uninterrupted ones, which is this module's core contract
-        raise ValueError(f"rng_source {rng_source!r} not resumable; use "
-                         "'threefry13' or 'threefry'")
+    engine = resolve_engine(engine, interpret)
+    pk.check_rng_source(rng_source)
     mdef, kmax, dyn32 = None, 0, None
     if model != "gbm":
         from mc_tpu.parallel.models_sharded import _model_def
@@ -185,8 +179,6 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
         if mdef.even_steps and sim.n_steps % 2:
             raise ValueError(f"{model} requires an even n_steps "
                              "(pair-consuming step loop)")
-        if interpret is None:
-            interpret = use_interpret()
         dyn32 = jax.tree_util.tree_map(
             lambda x: jnp.asarray(x, jnp.float32), dyn)
         method = "euler"
@@ -236,8 +228,8 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
     def model_slabs(n_local, start):
         cfg_m = pk.KernelConfig(n_paths=n_local, n_steps=sim.n_steps,
                                 tile_rows=tile_rows)
-        return _model_chunk_slabs(model, po, cfg_m, engine, interpret,
-                                  kmax, sim.n_steps, key, opt32, dyn32,
+        return _model_chunk_slabs(model, po, cfg_m, kmax, sim.n_steps, key,
+                                  opt32, dyn32,
                                   jnp.uint32(start),
                                   jnp.uint32(sim.n_paths))
 
@@ -310,7 +302,7 @@ def chunked_price(option: OptionParams = DEMO_OPTION,
         cfg_d = pk.KernelConfig(n_paths=tile_rows * LANES,
                                 n_steps=sim.n_steps, tile_rows=tile_rows)
         params_m, _ = mdef.build(po, cfg_d, opt32, dyn32, sim.n_steps,
-                                 "xla", False, kmax)
+                                 kmax)
         discount = mdef.discount(params_m, r, t)
     else:
         discount = jnp.exp(-r * t)

@@ -1,6 +1,6 @@
 """Option contract + simulation configuration.
 
-TPU-native equivalent of the reference's ``OptionData`` struct
+JAX equivalent of the reference's ``OptionData`` struct
 (``inc/tool.cuh:13-26``) and its constant-memory broadcast
 (``inc/trajectories.cuh:12``, ``hello.cu:22``).  Instead of a mutable C struct
 copied to ``__constant__`` memory, the contract parameters live in a frozen

@@ -4,15 +4,16 @@ One function per pricing capability, mirroring the reference's host wrappers
 (``inc/wrappers.cuh:10-340``) but as pure jitted programs:
 
 * ``price(...)``            — vanilla / bullet / Asian / barrier / lookback
-                              pricing, engine="pallas" (fused kernel) or
-                              "xla" (plain jnp, CPU-runnable reference dual);
-                              antithetic + control-variate variance reduction.
+                              pricing, engine="pallas" (fused Triton kernel,
+                              the default on a GPU) or "xla" (plain jnp, the
+                              default elsewhere); antithetic +
+                              control-variate variance reduction.
 * ``simulate_trajectories`` — full (S_t, state_t) grid materialization (C9).
 
-Both engines consume the *same* counter-based RNG stream, so
-``engine="xla"`` and ``engine="pallas"`` agree bit-for-bit — the framework's
-version of the reference's shared-random-array CPU/GPU fixture
-(``inc/testing.cuh:17-42``; SURVEY.md section 4 "same-randomness
+Both engines consume the *same* counter-based RNG stream and sum in the
+same order, so they agree to the last bits of the transcendentals — the
+framework's version of the reference's shared-random-array CPU/GPU
+fixture (``inc/testing.cuh:17-42``; SURVEY.md section 4 "same-randomness
 determinism").
 
 The reference finished its reductions on the host over memcpy'd partials
@@ -34,7 +35,7 @@ from mc_tpu import rng
 from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES
+from mc_tpu.ops._pallas import LANES, resolve_engine
 from mc_tpu.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -73,8 +74,7 @@ def _payoff_namespace(option: OptionParams, n_steps: int) -> SimpleNamespace:
 def _xla_partials(payoff: PathPayoff, cfg: pk.KernelConfig, key, option,
                   path_offset, n_valid=None):
     """Pure-jnp twin of `pk.simulate_partials`: identical draws AND identical
-    summation order (8x128 sublane fold + Kahan tile accumulation), so the
-    XLA engine and the compiled Pallas kernel agree bit-for-bit.
+    summation order (8x128 sublane fold + Kahan tile accumulation).
 
     Iterates tiles with `lax.scan` so memory stays bounded at one
     (tile_rows, 128) tile regardless of n_paths.
@@ -82,42 +82,23 @@ def _xla_partials(payoff: PathPayoff, cfg: pk.KernelConfig, key, option,
     p = _payoff_namespace(option, cfg.n_steps)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
-    n_out = 5 if cfg.with_cv else 2
 
     def tile_fn(ids, valid):
-        shape = ids.shape
+        s0 = jnp.full(ids.shape, p.s0, jnp.float32)
+        return pk.path_moments(payoff, cfg, p, k0, k1, ids, valid, s0)
 
-        def draw_pair(m):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, rounds=cfg.rng_rounds)
-
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        pay, x = pk._payoff_leg(payoff, cfg, p, s0, draw_pair)
-        if cfg.antithetic:
-            pay_n, x_n = pk._payoff_leg(
-                payoff, cfg, p, s0,
-                lambda m: tuple(-z for z in draw_pair(m)))
-            pay = 0.5 * (pay + pay_n)
-            x = 0.5 * (x + x_n)
-        pay = jnp.where(valid, pay, 0.0)
-        vals = [pay, pay * pay]
-        if cfg.with_cv:
-            x = jnp.where(valid, x, 0.0)
-            vals += [x, x * x, pay * x]
-        return vals
-
-    return pk.xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, n_out,
+    return pk.xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows,
+                              5 if cfg.with_cv else 2,
                               offset=path_offset, bound=n_valid)
 
 
 # ---------------------------------------------------------------------------
-# Differentiable Pallas primal: jax.grad cannot trace into a Mosaic
-# kernel, but the engine-parity contract (pallas == XLA dual BITWISE on
-# the same stream) makes the dual's VJP EXACT for the kernel — so the
-# fused kernel is the forward pass and the dual defines the backward.
-# Any computation composing price(engine="pallas") (calibration loops,
-# chunked pipelines, greeks with jax.grad) now differentiates instead
-# of erroring.
+# Differentiable Pallas primal: jax.grad cannot trace into a Triton
+# kernel, but the XLA engine computes the same function of the same
+# stream — so the fused kernel is the forward pass and the XLA engine
+# defines the backward.  Any computation composing price(engine="pallas")
+# (calibration loops, chunked pipelines, greeks with jax.grad)
+# differentiates instead of erroring.
 # ---------------------------------------------------------------------------
 
 
@@ -130,11 +111,6 @@ def _pallas_partials_diff(payoff, cfg, interpret, key, option, path_offset):
 
 
 def _pallas_partials_fwd(payoff, cfg, interpret, key, option, path_offset):
-    if cfg.rng_source == "hw":
-        raise ValueError(
-            "gradients are undefined for rng_source='hw': the hardware "
-            "PRNG stream has no XLA dual to differentiate — use the "
-            "counter-based threefry sources")
     out = _pallas_partials_diff(payoff, cfg, interpret, key, option,
                                 path_offset)
     return out, (key, option, path_offset)
@@ -245,34 +221,39 @@ def price(option: OptionParams = DEMO_OPTION,
           payoff="vanilla_call",
           *,
           method: Optional[str] = None,
-          engine: str = "pallas",
+          engine: Optional[str] = None,
           antithetic: bool = False,
           control_variate: bool = False,
-          tile_rows: int = 128,
+          tile_rows: Optional[int] = None,
           rng_source: str = "threefry13",
           stream: int = STREAM_OUTER,
           key=None,
           path_offset: int = 0,
           n_paths: Optional[int] = None,
           importance_shift: float = 0.0,
-          interpret: Optional[bool] = None) -> PriceResult:
-    """Price an option by Monte Carlo on TPU.
+          interpret: bool = False) -> PriceResult:
+    """Price an option by Monte Carlo.
 
     Replaces (and unifies) the reference wrappers:
       * wrapper_gpu_option_vanilla   -> price(payoff="vanilla_call")
         (exact one-shot terminal draw, trajectories.cuh:54-113)
       * wrapper_gpu_bullet_option[_atomic] -> price(payoff="bullet_call")
         (log-Euler step loop + windowed payoff, trajectories.cuh:115-271;
-        the partial-vs-atomic aggregation distinction disappears — TPU
-        tiles accumulate partials race-free by construction)
+        the partial-vs-atomic aggregation distinction disappears —
+        tiles write per-tile partials, summed in tile order)
       * plus Asian / knock-out / lookback payoffs and antithetic /
         control-variate variance reduction (BASELINE.json configs 2-3).
 
+    engine: None picks by platform — "pallas" (the Triton kernels) on a
+    GPU, "xla" elsewhere; "pallas" off the GPU needs ``interpret=True``.
+    tile_rows: paths per tile / 128; None takes the engine's default
+    (`path_kernels.DEFAULT_TILE_ROWS`).  The two engines agree bit for
+    bit on the CPU (interpreted kernels) at equal tile_rows.
+
     method: "terminal" (exact, European-only) | "terminal_pair" (exact,
-    both Box-Muller halves become paths — measured 1.71x the terminal
-    kernel's throughput, the production fast path; no
-    antithetic/CV/IS/offset combos) | "euler".  Default (round-5
-    decision): "terminal_pair" for plain terminal-only pricing,
+    both Box-Muller halves become paths — half the threefry and
+    Box-Muller work per path; no antithetic/CV/IS/offset combos) |
+    "euler".  Default: "terminal_pair" for plain terminal-only pricing,
     "terminal" when antithetic/CV/IS/path_offset need the per-path
     counter stream, "euler" for path-dependent payoffs.  NOTE the two
     terminal kernels draw DIFFERENT streams (pair element e covers
@@ -290,10 +271,8 @@ def price(option: OptionParams = DEMO_OPTION,
     """
     po = get_payoff(payoff)
     if method is None:
-        # terminal_pair is the production default for plain terminal
-        # pricing (round-5 decision, BASELINE.md "Terminal kernel":
-        # measured 36.0e9 vs 21.0e9 paths/s classic, 1.71x, with a
-        # bitwise XLA dual and a native CPU stream twin).  Variance
+        # terminal_pair is the default for plain terminal pricing: one
+        # threefry + Box-Muller pair prices two paths.  Variance
         # reduction / IS / resume offsets need the per-path counter
         # stream, so they keep the classic terminal kernel.
         if (po.terminal_only and not antithetic and not control_variate
@@ -312,10 +291,6 @@ def price(option: OptionParams = DEMO_OPTION,
         if path_offset:
             raise ValueError("terminal_pair does not take a path_offset "
                              "(element ids cover paths (2e, 2e+1))")
-        if rng_source not in ("threefry", "threefry13", "hw"):
-            raise ValueError("terminal_pair takes rng_source threefry13/"
-                             "threefry (counter-based, reproducible) or "
-                             "'hw' (stateful TPU PRNG, fastest)")
     po.validate(option, sim.n_steps)
     if importance_shift == "auto":
         # center E[log S_T] at log K: shift = (log(K/S0) - mu T)/(sigma vT)
@@ -324,19 +299,14 @@ def price(option: OptionParams = DEMO_OPTION,
         importance_shift = float(
             (math.log(option.k / option.s0) - mu * option.t)
             / (option.sigma * math.sqrt(option.t)))
-    if rng_source not in ("threefry", "threefry13", "hw"):
-        raise ValueError(f"unknown rng_source {rng_source!r}")
-    if rng_source == "hw" and antithetic:
-        raise ValueError("antithetic requires a counter-based rng_source "
-                         "(the hw PRNG cannot replay draws)")
-    if rng_source == "hw" and engine != "pallas":
-        raise ValueError("rng_source='hw' requires engine='pallas'")
+    pk.check_rng_source(rng_source)
+    engine = resolve_engine(engine, interpret)
+    if tile_rows is None:
+        tile_rows = pk.default_tile_rows(engine)
     if key is None:
         key = jnp.asarray(rng.derive_key(sim.seed, stream), jnp.uint32)
     # seed is consumed into `key` above; zero it in the static argument so
     # re-seeding never recompiles (the reference recompiled for ANY change).
-    if importance_shift and rng_source == "hw":
-        raise ValueError("importance sampling requires rng_source='threefry'")
     return _price_impl(
         option.as_f32(), po, sim.replace(seed=0), method, engine, antithetic,
         control_variate, tile_rows, rng_source, interpret, key,
@@ -378,15 +348,19 @@ class Trajectories:
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "tile_rows", "interpret"))
-def _trajectories_impl(option, payoff, sim, tile_rows, interpret, key,
+    static_argnames=("payoff", "sim", "tile_rows", "engine", "interpret"))
+def _trajectories_impl(option, payoff, sim, tile_rows, engine, interpret, key,
                        path_offset):
     cfg = pk.KernelConfig(
         n_paths=sim.n_paths, n_steps=sim.n_steps, tile_rows=tile_rows)
     params = pk.pack_params(option, sim.n_steps)
-    s, st, psum, psq = pk.simulate_trajectories_kernel(
-        payoff, cfg, key, params, path_offset=path_offset,
-        interpret=interpret)
+    if engine == "pallas":
+        s, st, psum, psq = pk.simulate_trajectories_kernel(
+            payoff, cfg, key, params, path_offset=path_offset,
+            interpret=interpret)
+    else:
+        s, st, psum, psq = pk.xla_trajectories(
+            payoff, cfg, key, params, path_offset=path_offset)
     return Trajectories(s=s, state=st, pay_sum=finish_sum(psum),
                         pay_sq=finish_sum(psq), n_paths=sim.n_paths)
 
@@ -399,25 +373,27 @@ def simulate_trajectories(option: OptionParams = DEMO_OPTION,
                           stream: int = STREAM_OUTER,
                           key=None,
                           path_offset: int = 0,
-                          interpret: Optional[bool] = None) -> Trajectories:
+                          engine: Optional[str] = None,
+                          interpret: bool = False) -> Trajectories:
     """Simulate and persist full trajectories (simulate_outer_trajectories,
-    trajectories.cuh:273-351). Default tile_rows=8 keeps the VMEM slab of
-    (n_steps, 8, 128) doubles under ~1 MB."""
+    trajectories.cuh:273-351).  ``engine`` as in `price`."""
     po = get_payoff(payoff)
+    engine = resolve_engine(engine, interpret)
     if key is None:
         key = jnp.asarray(rng.derive_key(sim.seed, stream), jnp.uint32)
     return _trajectories_impl(option.as_f32(), po, sim.replace(seed=0),
-                              tile_rows, interpret, key,
+                              tile_rows, engine, interpret, key,
                               jnp.uint32(path_offset))
 
 
 # ---------------------------------------------------------------------------
-# Strike-ladder pricing: M strikes on shared paths in one kernel pass.
+# Strike-ladder pricing: M strikes on shared paths in one pass.
 # ---------------------------------------------------------------------------
 
 
 def _xla_ladder(payoff, cfg, n_strikes, key, option, strikes, path_offset=0):
-    """Pure-jnp dual of the ladder kernel (same draws, same Kahan order)."""
+    """One simulation per tile, M payoff evaluations (same draws and Kahan
+    order as `price` at each strike)."""
     p = _payoff_namespace(option, cfg.n_steps)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
@@ -482,21 +458,14 @@ def _xla_ladder(payoff, cfg, n_strikes, key, option, strikes, path_offset=0):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "n_strikes", "method", "engine",
-                     "antithetic", "tile_rows", "interpret"))
-def _price_ladder_impl(option, payoff, sim, n_strikes, method, engine,
-                       antithetic, tile_rows, interpret, key, strikes):
+    static_argnames=("payoff", "sim", "n_strikes", "method", "antithetic",
+                     "tile_rows"))
+def _price_ladder_impl(option, payoff, sim, n_strikes, method, antithetic,
+                       tile_rows, key, strikes):
     cfg = pk.KernelConfig(
         n_paths=sim.n_paths, n_steps=sim.n_steps, tile_rows=tile_rows,
         antithetic=antithetic, method=method)
-    if engine == "pallas":
-        params = pk.pack_params(option, sim.n_steps)
-        acc_s, acc_q = pk.simulate_ladder_partials(
-            payoff, cfg, n_strikes, key, params, strikes,
-            interpret=interpret)
-    else:
-        acc_s, acc_q = _xla_ladder(payoff, cfg, n_strikes, key, option,
-                                   strikes)
+    acc_s, acc_q = _xla_ladder(payoff, cfg, n_strikes, key, option, strikes)
     sums = jax.vmap(finish_sum)(acc_s)
     sqs = jax.vmap(finish_sum)(acc_q)
     r = jnp.float32(option.r)
@@ -510,13 +479,11 @@ def price_ladder(strikes,
                  payoff="vanilla_call",
                  *,
                  method: Optional[str] = None,
-                 engine: str = "pallas",
                  antithetic: bool = False,
                  tile_rows: int = 128,
                  stream: int = STREAM_OUTER,
-                 key=None,
-                 interpret: Optional[bool] = None) -> PriceResult:
-    """Price a strike ladder on SHARED paths in one kernel pass.
+                 key=None) -> PriceResult:
+    """Price a strike ladder on SHARED paths in one pass.
 
     Returns a PriceResult whose fields are (n_strikes,) arrays.  The path
     simulation (the entire cost) runs once; each strike adds only a
@@ -536,7 +503,7 @@ def price_ladder(strikes,
         key = jnp.asarray(rng.derive_key(sim.seed, stream), jnp.uint32)
     return _price_ladder_impl(
         option.as_f32(), po, sim.replace(seed=0), int(strikes.shape[0]),
-        method, engine, antithetic, tile_rows, interpret, key, strikes)
+        method, antithetic, tile_rows, key, strikes)
 
 
 def price_portfolio(options: OptionParams,
@@ -544,7 +511,6 @@ def price_portfolio(options: OptionParams,
                     payoff="vanilla_call",
                     *,
                     method: Optional[str] = None,
-                    engine: str = "xla",
                     antithetic: bool = False,
                     control_variate: bool = False,
                     tile_rows: int = 128,
@@ -556,16 +522,9 @@ def price_portfolio(options: OptionParams,
     B contracts (any mix of spots/strikes/vols/maturities/barriers) priced
     under common random numbers (same stream for every contract, so
     spreads and book-level Greeks are low-variance).  Because OptionParams
-    leaves are traced, this is a single `jax.vmap` over the engine: one
-    compile for any B.
-
-    engine="xla" (default) vmaps the XLA dual; engine="pallas" runs ONE
-    batched-book kernel: per-contract parameter rows in SMEM, a
-    fori_loop over contracts inside the kernel re-uses the tile's
-    threefry draws, so a B-contract book costs ~one kernel launch
-    instead of B (bit-identical per contract to the vmapped dual).
-    control_variate=True books run through the same batched kernel
-    (per-contract CV columns in the moment slab).
+    leaves are traced, this is a single `jax.vmap` over the XLA engine:
+    one compile for any B, and each contract's result is bit-identical to
+    its standalone ``price(engine="xla")``.
     """
     po = get_payoff(payoff)
     if method is None:
@@ -574,9 +533,6 @@ def price_portfolio(options: OptionParams,
         raise ValueError(f"{po.name} is path-dependent; method='terminal' invalid")
     if key is None:
         key = jnp.asarray(rng.derive_key(sim.seed, stream), jnp.uint32)
-    # One effective tile height for BOTH engines (the book kernel's shared
-    # normal buffer bounds it) so the pallas/xla bitwise duality holds.
-    tile_rows = pk.book_tile_rows(tile_rows, sim.n_steps, method)
     opts32 = jax.tree_util.tree_map(
         lambda x: jnp.atleast_1d(jnp.asarray(x, jnp.float32)), options)
     # broadcast scalar fields (e.g. a default q) to the book size
@@ -585,65 +541,8 @@ def price_portfolio(options: OptionParams,
         lambda x: jnp.broadcast_to(x, (b,)), opts32)
 
     def one(option):
-        return _price_impl(option, po, sim.replace(seed=0), method, engine,
+        return _price_impl(option, po, sim.replace(seed=0), method, "xla",
                            antithetic, control_variate, tile_rows,
-                           "threefry13", None, key, jnp.uint32(0), None)
+                           "threefry13", False, key, jnp.uint32(0), None)
 
-    if engine == "xla":
-        return jax.vmap(one)(opts32)
-    if engine != "pallas":
-        raise ValueError(f"unknown engine {engine!r}")
-    return _book_pallas(po, opts32, sim.replace(seed=0), method,
-                        antithetic, control_variate, tile_rows, key)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("payoff", "sim", "method", "antithetic",
-                     "control_variate", "tile_rows"))
-def _book_pallas(payoff, opts32, sim, method, antithetic, control_variate,
-                 tile_rows, key):
-    """One batched Pallas kernel for the whole book (B launches -> 1)."""
-    b = jax.tree_util.tree_leaves(opts32)[0].shape[0]
-    cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
-                          tile_rows=tile_rows, antithetic=antithetic,
-                          with_cv=control_variate, method=method)
-    params_rows = jax.vmap(lambda o: pk.pack_params(o, sim.n_steps))(opts32)
-    parts = pk.simulate_book_partials(payoff, cfg, b, key, params_rows)
-    sums = [jax.vmap(finish_sum)(x) for x in parts]
-    r = jnp.asarray(opts32.r, jnp.float32)
-    t = jnp.asarray(opts32.t, r.dtype)
-    discount = jnp.exp(-r * t)
-    n = jnp.full((b,), sim.n_paths, jnp.float32)
-    if not control_variate:
-        return summarize(sums[0], sums[1], n, discount)
-    # per-contract CV finish — the same elementwise formulas the vmapped
-    # XLA dual applies, so the bitwise book duality extends to CV books
-    sum_p, sum_p2, sum_x, sum_x2, sum_px = sums
-    mean_p = sum_p / n
-    mean_x = sum_x / n
-    var_p = jnp.maximum(sum_p2 / n - mean_p * mean_p, 0.0)
-    var_x = jnp.maximum(sum_x2 / n - mean_x * mean_x, 1e-30)
-    cov = sum_px / n - mean_p * mean_x
-    beta = cov / var_x
-    if payoff.has_control:
-        ex = payoff.control_expectation(
-            _payoff_namespace_book(opts32, sim.n_steps))
-    else:
-        q = jnp.asarray(opts32.q, r.dtype)
-        ex = jnp.asarray(opts32.s0, n.dtype) * jnp.exp((r - q) * t)
-    adj_mean = mean_p - beta * (mean_x - ex)
-    adj_var = jnp.maximum(var_p - cov * cov / var_x, 0.0)
-    return PriceResult(
-        price=discount * adj_mean,
-        stderr=jnp.sqrt(adj_var / n) * discount,
-        n_paths=n,
-        payoff_mean=adj_mean,
-        payoff_var=adj_var,
-    )
-
-
-def _payoff_namespace_book(opts32, n_steps):
-    """Vectorized (B,)-leaf params namespace for book-level CV closed
-    forms (elementwise, so identical to the vmapped scalar namespace)."""
-    return _payoff_namespace(opts32, n_steps)
+    return jax.vmap(one)(opts32)

@@ -1,7 +1,7 @@
 """Greeks: sensitivities of the Monte Carlo price to market parameters.
 
 Not present in the reference (it prices only), but a required capability of
-any production pricing framework and a showcase of the TPU-native design:
+any production pricing framework and a showcase of the functional design:
 because the whole pricing engine is a pure jitted function of the traced
 ``OptionParams`` pytree, **pathwise Greeks are one `jax.grad`** — the
 cost of all first-order Greeks together is one extra backward pass, with
@@ -35,6 +35,7 @@ import jax.numpy as jnp
 from mc_tpu import rng
 from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER, _price_impl
+from mc_tpu.ops._pallas import resolve_engine
 from mc_tpu.ops.payoffs import get_payoff
 
 __all__ = ["greeks", "heston_greeks", "merton_greeks", "sabr_greeks",
@@ -64,10 +65,11 @@ _PATHWISE_OK = {"vanilla_call", "vanilla_put", "asian_call",
 _LRM_OK = {"delta", "vega", "rho", "epsilon", "gamma"}
 
 
-def _price_fn(payoff, sim, method, engine, antithetic, tile_rows, key):
+def _price_fn(payoff, sim, method, engine, antithetic, tile_rows, key,
+              interpret=False):
     def f(option: OptionParams):
         return _price_impl(option, payoff, sim, method, engine, antithetic,
-                           False, tile_rows, "threefry13", None, key,
+                           False, tile_rows, "threefry13", interpret, key,
                            jnp.uint32(0), None).price
     return f
 
@@ -178,36 +180,6 @@ def _lrm_moments(option, payoff, sim, sim_method, tile_rows, key):
             for i, name in enumerate(names)}
 
 
-@functools.partial(
-    jax.jit, static_argnames=("payoff", "sim", "sim_method", "tile_rows",
-                              "interpret"))
-def _pathwise_kernel_moments(option, payoff, sim, sim_method, tile_rows,
-                             interpret, key):
-    """Pathwise greeks through the PRODUCTION Pallas engine: one fused
-    pass emits (pay, delta, vega, rho, epsilon) moment slabs (manual GBM
-    tangents + jvp'd payoff updates — see pk._greek_leg)."""
-    from mc_tpu.oracle import summarize
-    from mc_tpu.ops import path_kernels as pk
-    from mc_tpu.ops.reduce import finish_sum
-
-    cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
-                          tile_rows=tile_rows, method=sim_method)
-    params = pk.pack_params(option, sim.n_steps)
-    slabs = pk.simulate_greek_partials(payoff, cfg, key, params,
-                                       interpret)
-    r = jnp.asarray(option.r, jnp.float32)
-    t = jnp.asarray(option.t, jnp.float32)
-    disc = jnp.exp(-r * t)
-    n = jnp.asarray(sim.n_paths, jnp.float32)
-    names = ("price", "delta", "vega", "rho", "epsilon")
-    return {name: summarize(finish_sum(slabs[2 * i]),
-                            finish_sum(slabs[2 * i + 1]), n, disc)
-            for i, name in enumerate(names)}
-
-
-_PATHWISE_KERNEL_OK = {"delta", "vega", "rho", "epsilon"}
-
-
 def greeks(option: OptionParams = DEMO_OPTION,
            sim: SimParams = DEMO_SIM,
            payoff="vanilla_call",
@@ -215,25 +187,23 @@ def greeks(option: OptionParams = DEMO_OPTION,
            method: str = "pathwise",
            which: Sequence[str] = ("delta", "vega", "rho", "theta"),
            sim_method: Optional[str] = None,
-           engine: str = "xla",
+           engine: Optional[str] = None,
            antithetic: bool = False,
            tile_rows: int = 128,
            rel_bump: float = 1e-3,
            stream: int = STREAM_OUTER,
-           key=None) -> Dict[str, Any]:
+           key=None,
+           interpret: bool = False) -> Dict[str, Any]:
     """Monte Carlo Greeks.  Returns {greek: value} (plus 'gamma' for fd).
 
-    `engine="xla"` by default: the XLA dual prices the identical stream,
-    so the Greeks correspond bit-for-bit to the production price.
-    `engine="pallas"` works for every method/which combination too — the
-    fused pathwise kernel serves the four market Greeks directly, and
-    everything else differentiates through the kernel's custom VJP
-    (`engines._pallas_partials_diff`: forward = Mosaic kernel, backward
-    = the bitwise-equal XLA dual, so the gradients are exact for the
-    production price) — it just compiles both programs for no numeric
-    difference.
+    ``engine`` prices as in `price` (the Triton kernel on a GPU, XLA
+    elsewhere); gradients through the kernel use the XLA engine as the
+    backward pass (`engines._pallas_partials_diff`), which computes the
+    same function of the same stream, so they are the production
+    price's gradients.
     """
     po = get_payoff(payoff)
+    engine = resolve_engine(engine, interpret)
     if sim_method is None:
         sim_method = "terminal" if po.terminal_only else "euler"
     if key is None:
@@ -273,24 +243,7 @@ def greeks(option: OptionParams = DEMO_OPTION,
         out["price_stderr"] = res["price"].stderr
         return out
     f = _price_fn(po, sim.replace(seed=0), sim_method, engine, antithetic,
-                  tile_rows, key)
-
-    if (method == "pathwise" and engine == "pallas"
-            and not (set(which) - _PATHWISE_KERNEL_OK) and not antithetic):
-        # fast path: ONE fused kernel computes the four market greeks
-        # with per-greek stderr.  Other which/antithetic combinations
-        # fall through to jax.grad below — the custom VJP on the Pallas
-        # primal (engines._pallas_partials_diff) differentiates the
-        # bitwise-equal XLA dual behind the kernel.
-        res = _pathwise_kernel_moments(opt32, po, sim.replace(seed=0),
-                                       sim_method, tile_rows, None, key)
-        out = {}
-        for g in which:
-            out[g] = res[g].price
-            out[f"{g}_stderr"] = res[g].stderr
-        out["price"] = res["price"].price
-        out["price_stderr"] = res["price"].stderr
-        return out
+                  tile_rows, key, interpret)
 
     if method == "pathwise":
         grads = jax.grad(f)(opt32)
@@ -387,7 +340,7 @@ def merton_greeks(option=None, merton=None,
 
     def f(opt, dyn):
         return price_merton(opt, dyn, sim, payoff, method="euler",
-                            engine="xla", antithetic=antithetic,
+                            antithetic=antithetic,
                             tile_rows=tile_rows, key=key).price
 
     return _fd_model_greeks(f, option, merton, MERTON_GREEK_FIELDS, which,
@@ -425,7 +378,7 @@ def sabr_greeks(option=None, sabr=None,
     key = jnp.asarray(rng.derive_key(sim.seed, stream, 0x5AB4), jnp.uint32)
 
     def f(opt, dyn):
-        return price_sabr(opt, dyn, sim, payoff, engine="xla",
+        return price_sabr(opt, dyn, sim, payoff,
                           antithetic=antithetic, tile_rows=tile_rows,
                           key=key).price
 
@@ -478,8 +431,8 @@ def heston_greeks(option=None, heston=None,
                          f"available: {sorted(HESTON_GREEK_FIELDS)}")
 
     def f(opt, hes):
-        return _price_heston_impl(opt, hes, po, sim.replace(seed=0), "xla",
-                                  antithetic, tile_rows, None, key,
+        return _price_heston_impl(opt, hes, po, sim.replace(seed=0),
+                                  antithetic, tile_rows, key,
                                   scheme=scheme).price
 
     out = {}
@@ -539,7 +492,7 @@ def vasicek_greeks(option=None, dyn=None,
                       jnp.uint32)
 
     def f(opt, d):
-        return price_vasicek(opt, d, sim, payoff, engine="xla",
+        return price_vasicek(opt, d, sim, payoff,
                              antithetic=antithetic, tile_rows=tile_rows,
                              key=key).price
 
@@ -613,7 +566,7 @@ def rainbow_greeks(option=None, basket=None,
                       jnp.uint32)
 
     def price_fn(b):
-        return price_rainbow(option, b, sim, payoff, engine="xla",
+        return price_rainbow(option, b, sim, payoff,
                              antithetic=antithetic, tile_rows=tile_rows,
                              key=key).price
 
@@ -647,7 +600,7 @@ def basket_greeks(option=None, basket=None,
                       jnp.uint32)
 
     def price_fn(b):
-        return price_basket(option, b, sim, payoff, engine="xla",
+        return price_basket(option, b, sim, payoff,
                             antithetic=antithetic, tile_rows=tile_rows,
                             key=key).price
 
@@ -744,13 +697,14 @@ def cva_greeks(option=None,
             (okw if kind == "option" else dkw)[field] = v
         opt = dataclasses.replace(option, **okw)
         if model is None:
+            # forward-mode AD runs through the XLA engine: a Triton
+            # kernel has no JVP rule
             res = price_nmc(opt, sim, payoff, engine="xla",
-                            tile_rows=tile_rows,
+                            tile_rows=8 if tile_rows is None else tile_rows,
                             stream_outer=stream_outer)
         else:
             d = dataclasses.replace(dyn32, **dkw) if dkw else dyn32
             res = price_nmc_family(fam, opt, d, sim, payoff,
-                                   engine="xla",
                                    tile_rows=(8 if tile_rows is None
                                               else tile_rows),
                                    stream_outer=stream_outer)

@@ -4,7 +4,7 @@ Beyond the reference (European/bullet only): the NMC surface estimates
 conditional values by brute inner simulation (nmc.py); LSMC gets the same
 continuation values by cross-sectional regression over the already-
 materialized trajectory grid — thousands of times cheaper, and the one
-component of the framework that exercises the MXU: the per-step normal
+component of the framework built on matrix products: the per-step normal
 equations ``(X^T W X) beta = X^T W y`` are batched matmuls over the
 (paths, basis) design matrix.
 
@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +38,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER, _payoff_namespace
 from mc_tpu.oracle import PriceResult
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES
+from mc_tpu.ops._pallas import LANES, resolve_engine
 from mc_tpu.ops.payoffs import get_payoff
 
 __all__ = ["price_american", "american_greeks", "american_bounds_family",
@@ -68,9 +67,11 @@ def _basis(s_norm, degree: int):
     return jnp.stack(cols, axis=-1)
 
 
-def _flat_grids(payoff, cfg, params, key, sim, interpret):
-    s_grid, c_grid, _, _ = pk.simulate_trajectories_kernel(
-        payoff, cfg, key, params, interpret=interpret)
+def _flat_grids(payoff, cfg, params, key, sim):
+    """The GBM exercise grids, from `price_nmc`'s trajectory engine for the
+    platform (the Triton kernel on a GPU, XLA elsewhere)."""
+    s_grid, c_grid, _, _ = pk.trajectories(payoff, cfg, key, params,
+                                           resolve_engine(None))
     n_pad = s_grid.shape[1] * LANES
     return (s_grid.reshape(sim.n_steps, n_pad),
             c_grid.reshape(sim.n_steps, n_pad), n_pad)
@@ -124,14 +125,18 @@ def _backward_fit(payoff, p, s_flat, c_flat, valid, n_steps, degree,
             w = itm.astype(jnp.float32)
             x = design_fn(t)                           # (P, B)
             xw = x * w[:, None]
-            # Normal equations on the MXU; ridge eps for conditioning.
+            # Normal equations in full float32 (no TF32); ridge eps for
+            # conditioning.
             xtx = reduce_fn(
-                jnp.dot(xw.T, x, preferred_element_type=jnp.float32))
+                jnp.dot(xw.T, x, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST))
             xty = reduce_fn(
-                jnp.dot(xw.T, v, preferred_element_type=jnp.float32))
+                jnp.dot(xw.T, v, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST))
             eye = jnp.eye(n_basis, dtype=jnp.float32)
             beta = jnp.linalg.solve(xtx + 1e-4 * eye, xty)
-            cont = jnp.dot(x, beta, preferred_element_type=jnp.float32)
+            cont = jnp.dot(x, beta, preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
             exercise = jnp.logical_and(itm, ex > cont)
             return jnp.where(exercise, ex, v), beta
 
@@ -163,7 +168,8 @@ def _apply_policy_pass(payoff, p, s_b, c_b, valid_b, betas, n_steps,
         itm = jnp.logical_and(jnp.logical_and(ex > 0.0, valid_b),
                               is_ex_date)
         x = design_fn(t)
-        cont = jnp.dot(x, betas[t], preferred_element_type=jnp.float32)
+        cont = jnp.dot(x, betas[t], preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
         return jnp.where(jnp.logical_and(itm, ex > cont), ex, vb)
 
     return jax.lax.fori_loop(0, n_steps - 1, apply_policy, vb)
@@ -171,16 +177,15 @@ def _apply_policy_pass(payoff, p, s_b, c_b, valid_b, betas, n_steps,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "degree", "tile_rows", "interpret",
-                     "two_pass", "every"))
-def _price_american_impl(option, payoff, sim, degree, tile_rows, interpret,
-                         two_pass, key, key_b, every=1):
+    static_argnames=("payoff", "sim", "degree", "tile_rows", "two_pass",
+                     "every"))
+def _price_american_impl(option, payoff, sim, degree, tile_rows, two_pass,
+                         key, key_b, every=1):
     p = _payoff_namespace(option, sim.n_steps)
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows)
     params = pk.pack_params(option, sim.n_steps)
-    s_flat, c_flat, n_pad = _flat_grids(payoff, cfg, params, key, sim,
-                                        interpret)
+    s_flat, c_flat, n_pad = _flat_grids(payoff, cfg, params, key, sim)
     valid = (jnp.arange(n_pad, dtype=jnp.uint32)
              < jnp.uint32(sim.n_paths))
 
@@ -202,8 +207,7 @@ def _price_american_impl(option, payoff, sim, degree, tile_rows, interpret,
     # Regression foresight bias is gone: the exercise rule never sees the
     # paths it prices, so the estimator is low-biased (a valid lower
     # bound up to MC noise) instead of in-sample high-biased.
-    s_b, c_b, n_pad_b = _flat_grids(payoff, cfg, params, key_b, sim,
-                                    interpret)
+    s_b, c_b, n_pad_b = _flat_grids(payoff, cfg, params, key_b, sim)
     valid_b = (jnp.arange(n_pad_b, dtype=jnp.uint32)
                < jnp.uint32(sim.n_paths))
     vb = _apply_policy_pass(payoff, p, s_b, c_b, valid_b, betas,
@@ -221,8 +225,7 @@ def price_american(option: OptionParams = DEMO_OPTION,
                    exercise_every: int = 1,
                    tile_rows: int = 8,
                    stream: int = STREAM_OUTER,
-                   key=None,
-                   interpret: Optional[bool] = None) -> PriceResult:
+                   key=None) -> PriceResult:
     """Longstaff-Schwartz price (Bermudan/American).
 
     ``exercise_every=k`` restricts exercise to every k-th simulation date
@@ -249,16 +252,16 @@ def price_american(option: OptionParams = DEMO_OPTION,
         raise ValueError("exercise_every must be >= 1")
     key_b = jnp.stack(rng.fold_key(key[0], key[1], 0x25A55))
     return _price_american_impl(option.as_f32(), po, sim.replace(seed=0),
-                                degree, tile_rows, interpret, two_pass,
+                                degree, tile_rows, two_pass,
                                 key, key_b, exercise_every)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("fam", "payoff", "sim", "degree", "tile_rows",
-                     "interpret", "two_pass", "every"))
+                     "two_pass", "every"))
 def _price_american_family_impl(fam, option, dyn, payoff, sim, degree,
-                                tile_rows, interpret, two_pass, key, key_b,
+                                tile_rows, two_pass, key, key_b,
                                 every=1):
     """Generic Longstaff-Schwartz client over the `nmc_engine.NMCFamily`
     protocol: the family supplies its trajectory grids, continuation
@@ -271,7 +274,7 @@ def _price_american_family_impl(fam, option, dyn, payoff, sim, degree,
                           tile_rows=tile_rows)
 
     def grids(k):
-        *gs, _, _ = fam.trajectories(payoff, cfg, k, params, interpret)
+        *gs, _, _ = fam.trajectories(payoff, cfg, k, params)
         n_pad = gs[0].shape[1] * LANES
         return (tuple(g.reshape(sim.n_steps, n_pad) for g in gs), n_pad)
 
@@ -314,8 +317,7 @@ def price_american_family(fam, option, dyn,
                           exercise_every: int = 1,
                           tile_rows: int = 8,
                           stream: int = STREAM_OUTER,
-                          key=None,
-                          interpret: Optional[bool] = None) -> PriceResult:
+                          key=None) -> PriceResult:
     """Shared LSMC entry point over a model family: validation + keys."""
     po = get_payoff(payoff) if isinstance(payoff, str) else payoff
     if po.n_state > 1:
@@ -331,7 +333,7 @@ def price_american_family(fam, option, dyn,
     key_b = jnp.stack(rng.fold_key(key[0], key[1], 0x25A55))
     return _price_american_family_impl(fam, option.as_f32(), dyn, po,
                                        sim.replace(seed=0), degree,
-                                       tile_rows, interpret, two_pass,
+                                       tile_rows, two_pass,
                                        key, key_b, exercise_every)
 
 
@@ -390,8 +392,7 @@ def price_american_heston(option: OptionParams = DEMO_OPTION,
                           exercise_every: int = 1,
                           tile_rows: int = 8,
                           stream: int = STREAM_OUTER,
-                          key=None,
-                          interpret: Optional[bool] = None) -> PriceResult:
+                          key=None) -> PriceResult:
     """Longstaff-Schwartz American/Bermudan price under Heston.
 
     Composes the Heston trajectory kernel (full-truncation Euler,
@@ -412,7 +413,7 @@ def price_american_heston(option: OptionParams = DEMO_OPTION,
                                  two_pass=two_pass,
                                  exercise_every=exercise_every,
                                  tile_rows=tile_rows, stream=stream,
-                                 key=key, interpret=interpret)
+                                 key=key)
 
 
 def price_american_merton(option: OptionParams = DEMO_OPTION,
@@ -425,8 +426,7 @@ def price_american_merton(option: OptionParams = DEMO_OPTION,
                           exercise_every: int = 1,
                           tile_rows: int = 8,
                           stream: int = STREAM_OUTER,
-                          key=None,
-                          interpret: Optional[bool] = None) -> PriceResult:
+                          key=None) -> PriceResult:
     """Longstaff-Schwartz American/Bermudan price under Merton jumps.
 
     Composes the Merton trajectory kernel (exact-in-law compound-Poisson
@@ -451,7 +451,7 @@ def price_american_merton(option: OptionParams = DEMO_OPTION,
                                  degree=degree, two_pass=two_pass,
                                  exercise_every=exercise_every,
                                  tile_rows=tile_rows, stream=stream,
-                                 key=key, interpret=interpret)
+                                 key=key)
 
 
 def _basis_sr(s_norm, x_r, degree: int):
@@ -479,8 +479,7 @@ def price_american_vasicek(option: OptionParams = DEMO_OPTION,
                            exercise_every: int = 1,
                            tile_rows: int = 8,
                            stream: int = STREAM_OUTER,
-                           key=None,
-                           interpret: Optional[bool] = None) -> PriceResult:
+                           key=None) -> PriceResult:
     """Longstaff-Schwartz American/Bermudan price under STOCHASTIC rates.
 
     Composes the Vasicek trajectory kernel (exact-in-law hybrid steps,
@@ -502,7 +501,7 @@ def price_american_vasicek(option: OptionParams = DEMO_OPTION,
                                  payoff, degree=degree, two_pass=two_pass,
                                  exercise_every=exercise_every,
                                  tile_rows=tile_rows, stream=stream,
-                                 key=key, interpret=interpret)
+                                 key=key)
 
 
 def price_american_localvol(option: OptionParams = DEMO_OPTION,
@@ -515,8 +514,7 @@ def price_american_localvol(option: OptionParams = DEMO_OPTION,
                             exercise_every: int = 1,
                             tile_rows: int = 8,
                             stream: int = STREAM_OUTER,
-                            key=None,
-                            interpret: Optional[bool] = None
+                            key=None
                             ) -> PriceResult:
     """Longstaff-Schwartz American/Bermudan price under a LOCAL-VOL
     surface sigma(S, t).
@@ -542,7 +540,7 @@ def price_american_localvol(option: OptionParams = DEMO_OPTION,
                                  two_pass=two_pass,
                                  exercise_every=exercise_every,
                                  tile_rows=tile_rows, stream=stream,
-                                 key=key, interpret=interpret)
+                                 key=key)
 
 
 # ---------------------------------------------------------------------------
@@ -557,9 +555,9 @@ def price_american_localvol(option: OptionParams = DEMO_OPTION,
 @functools.partial(
     jax.jit,
     static_argnames=("payoff", "sim", "degree", "tile_rows", "n_outer",
-                     "n_inner", "interpret", "every"))
+                     "n_inner", "every"))
 def _ab_upper_impl(option, payoff, sim, degree, tile_rows, n_outer,
-                   n_inner, interpret, key_fit, key_outer, key_inner,
+                   n_inner, key_fit, key_outer, key_inner,
                    every=1):
     p = _payoff_namespace(option, sim.n_steps)
     n = sim.n_steps
@@ -573,8 +571,7 @@ def _ab_upper_impl(option, payoff, sim, degree, tile_rows, n_outer,
     # 1) the SAME policy the lower bound prices (fit on set A)
     cfg_a = pk.KernelConfig(n_paths=sim.n_paths, n_steps=n,
                             tile_rows=tile_rows)
-    s_a, c_a, n_pad_a = _flat_grids(payoff, cfg_a, params, key_fit, sim,
-                                    interpret)
+    s_a, c_a, n_pad_a = _flat_grids(payoff, cfg_a, params, key_fit, sim)
     valid_a = (jnp.arange(n_pad_a, dtype=jnp.uint32)
                < jnp.uint32(sim.n_paths))
     _, betas = _backward_fit(payoff, p, s_a, c_a, valid_a, n, degree,
@@ -583,8 +580,7 @@ def _ab_upper_impl(option, payoff, sim, degree, tile_rows, n_outer,
     # 2) independent outer set B
     cfg_b = pk.KernelConfig(n_paths=n_outer, n_steps=n,
                             tile_rows=tile_rows)
-    s_b, c_b, n_pad_b = _flat_grids(payoff, cfg_b, params, key_outer, sim,
-                                    interpret)
+    s_b, c_b, n_pad_b = _flat_grids(payoff, cfg_b, params, key_outer, sim)
     valid_b = (jnp.arange(n_pad_b, dtype=jnp.uint32)
                < jnp.uint32(n_outer))
     ids_b = jnp.arange(n_pad_b, dtype=jnp.uint32)
@@ -609,7 +605,8 @@ def _ab_upper_impl(option, payoff, sim, degree, tile_rows, n_outer,
             ex = payoff.terminal((), s, p)
             x = _basis(s * inv_k, degree)
             cont = jnp.dot(x, betas[u],
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
             is_ex_date = ((u + 1) % every) == 0
             trig = jnp.logical_and(
                 jnp.logical_and(jnp.logical_and(ex > 0.0, ex > cont),
@@ -705,8 +702,7 @@ def american_bounds(option: OptionParams = DEMO_OPTION,
                     n_inner: int = 128,
                     exercise_every: int = 1,
                     tile_rows: int = 8,
-                    stream: int = STREAM_OUTER,
-                    interpret: Optional[bool] = None):
+                    stream: int = STREAM_OUTER):
     """(lower, upper) bracketing the American price with error bars.
 
     lower: the two-pass LSMC estimate (valid lower bound up to MC noise).
@@ -745,10 +741,10 @@ def american_bounds(option: OptionParams = DEMO_OPTION,
             "heston", option, heston, sim, payoff, degree=degree,
             n_outer=n_outer, n_inner=n_inner,
             exercise_every=exercise_every, tile_rows=tile_rows,
-            stream=stream, interpret=interpret)
+            stream=stream)
     lower = price_american(option, sim, payoff, degree=degree,
                            tile_rows=tile_rows, stream=stream,
-                           two_pass=True, interpret=interpret,
+                           two_pass=True,
                            exercise_every=exercise_every)
     key_fit = jnp.asarray(rng.derive_key(sim.seed, stream), jnp.uint32)
     key_outer = jnp.asarray(rng.derive_key(sim.seed, stream, 0xAB01),
@@ -756,8 +752,8 @@ def american_bounds(option: OptionParams = DEMO_OPTION,
     key_inner = jnp.asarray(rng.derive_key(sim.seed, stream, 0xAB02),
                             jnp.uint32)
     upper = _ab_upper_impl(option.as_f32(), po, sim.replace(seed=0),
-                           degree, tile_rows, n_outer, n_inner, interpret,
-                           key_fit, key_outer, key_inner, exercise_every)
+                           degree, tile_rows, n_outer, n_inner, key_fit,
+                           key_outer, key_inner, exercise_every)
     return lower, upper
 
 
@@ -770,12 +766,12 @@ def american_bounds(option: OptionParams = DEMO_OPTION,
 @functools.partial(
     jax.jit,
     static_argnames=("payoff", "sim", "d", "degree", "tile_rows",
-                     "interpret", "two_pass", "every"))
+                     "two_pass", "every"))
 def _price_american_basket_impl(option, basket, payoff, sim, d, degree,
-                                tile_rows, interpret, two_pass, key, key_b,
+                                tile_rows, two_pass, key, key_b,
                                 every=1):
     from mc_tpu.models.basket import (_basket_namespace, _pack_basket,
-                                      basket_trajectories_kernel)
+                                      basket_trajectories)
     ns = _basket_namespace(option, basket, sim.n_steps)
     params = _pack_basket(ns, d)
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
@@ -784,8 +780,7 @@ def _price_american_basket_impl(option, basket, payoff, sim, d, degree,
     inv_k = 1.0 / ns.k
 
     def grids(k):
-        b_g, c_g, _, _ = basket_trajectories_kernel(
-            payoff, cfg, d, k, params, interpret=interpret)
+        b_g, c_g, _, _ = basket_trajectories(payoff, cfg, d, k, params)
         n_pad = b_g.shape[1] * LANES
         return (b_g.reshape(sim.n_steps, n_pad),
                 c_g.reshape(sim.n_steps, n_pad), n_pad)
@@ -822,8 +817,7 @@ def price_american_basket(option: OptionParams = DEMO_OPTION,
                           exercise_every: int = 1,
                           tile_rows: int = 8,
                           stream: int = STREAM_OUTER,
-                          key=None,
-                          interpret: Optional[bool] = None) -> PriceResult:
+                          key=None) -> PriceResult:
     """Longstaff-Schwartz American/Bermudan option on a correlated
     basket: exercise decisions regress on the BASKET level (the standard
     1-D design — the basket value is the payoff's only state variable).
@@ -846,8 +840,8 @@ def price_american_basket(option: OptionParams = DEMO_OPTION,
     key_b = jnp.stack(rng.fold_key(key[0], key[1], 0x25A55))
     return _price_american_basket_impl(option.as_f32(), basket.as_f32(),
                                        po, sim.replace(seed=0), basket.d,
-                                       degree, tile_rows, interpret,
-                                       two_pass, key, key_b,
+                                       degree, tile_rows, two_pass, key,
+                                       key_b,
                                        exercise_every)
 
 
@@ -861,8 +855,7 @@ def price_american_rainbow(option: OptionParams = DEMO_OPTION,
                            exercise_every: int = 1,
                            tile_rows: int = 8,
                            stream: int = STREAM_OUTER,
-                           key=None,
-                           interpret: Optional[bool] = None) -> PriceResult:
+                           key=None) -> PriceResult:
     """Longstaff-Schwartz American/Bermudan rainbow option: early
     exercise of best-of / worst-of contracts on d correlated assets.
 
@@ -889,7 +882,7 @@ def price_american_rainbow(option: OptionParams = DEMO_OPTION,
                                  two_pass=two_pass,
                                  exercise_every=exercise_every,
                                  tile_rows=tile_rows, stream=stream,
-                                 key=key, interpret=interpret)
+                                 key=key)
 
 
 # ---------------------------------------------------------------------------
@@ -1215,7 +1208,8 @@ def _family_policy_tools(fam, option, dyn, payoff, sim, degree,
             ex = payoff.terminal((), s, p)
             x = fam.lsmc_basis_point(p, carry, s, degree, inv_k)
             cont = jnp.dot(x, betas[u],
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
             is_ex_date = ((u + 1) % every) == 0
             trig = jnp.logical_and(
                 jnp.logical_and(jnp.logical_and(ex > 0.0, ex > cont),
@@ -1247,9 +1241,9 @@ def _family_policy_tools(fam, option, dyn, payoff, sim, degree,
 @functools.partial(
     jax.jit,
     static_argnames=("fam", "payoff", "sim", "degree", "tile_rows",
-                     "n_outer", "n_inner", "interpret", "every"))
+                     "n_outer", "n_inner", "every"))
 def _ab_upper_family_impl(fam, option, dyn, payoff, sim, degree, tile_rows,
-                          n_outer, n_inner, interpret, key_fit, key_outer,
+                          n_outer, n_inner, key_fit, key_outer,
                           key_inner, every=1):
     T = _family_policy_tools(fam, option, dyn, payoff, sim, degree,
                              tile_rows, n_outer, key_fit, key_outer,
@@ -1354,8 +1348,7 @@ def american_bounds_family(model: str,
                            n_inner: int = 128,
                            exercise_every: int = 1,
                            tile_rows: int = 8,
-                           stream: int = STREAM_OUTER,
-                           interpret: Optional[bool] = None):
+                           stream: int = STREAM_OUTER):
     """Andersen-Broadie bracket under a model family: (lower, upper).
 
     ``model``: "heston" | "merton" | "cev" | "localvol" | "sabr" |
@@ -1403,8 +1396,7 @@ def american_bounds_family(model: str,
     lower = price_american_family(fam, option, dyn32, sim, payoff,
                                   degree=degree, two_pass=True,
                                   exercise_every=exercise_every,
-                                  tile_rows=tile_rows, stream=stream,
-                                  interpret=interpret)
+                                  tile_rows=tile_rows, stream=stream)
     key_fit = jnp.asarray(rng.derive_key(sim.seed, stream, fam.tag),
                           jnp.uint32)
     key_outer = jnp.asarray(
@@ -1413,7 +1405,7 @@ def american_bounds_family(model: str,
         rng.derive_key(sim.seed, stream, fam.tag, 0xAB02), jnp.uint32)
     upper = _ab_upper_family_impl(fam, option.as_f32(), dyn32, po,
                                   sim.replace(seed=0), degree, tile_rows,
-                                  n_outer, n_inner, interpret, key_fit,
+                                  n_outer, n_inner, key_fit,
                                   key_outer, key_inner, exercise_every)
     return lower, upper
 
@@ -1461,7 +1453,8 @@ def _american_exposure_values(fam, option, dyn, payoff, sim, degree,
             x = fam.lsmc_basis_point(p, carry_t, T.lvl_b[t], degree,
                                      T.inv_k)
             cont = jnp.dot(x, T.betas[t],
-                           preferred_element_type=jnp.float32)
+                           preferred_element_type=jnp.float32,
+                           precision=jax.lax.Precision.HIGHEST)
             take = jnp.logical_and(ex > 0.0, ex > cont)
         else:
             take = jnp.zeros((T.n_pad_b,), bool)

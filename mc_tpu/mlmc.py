@@ -16,9 +16,8 @@ O(eps^-3) to O(eps^-2 log^2 eps).
 
 Level sample counts follow the standard allocation
 N_l ~ sqrt(V_l / C_l) * sum(sqrt(V_l C_l)) / eps^2, estimated from pilot
-runs.  The estimator runs through the jitted XLA engine (fast on TPU via
-XLA fusion; the per-level coupled kernel is the same step loop the Pallas
-engines use elsewhere).
+runs.  The estimator runs through the jitted XLA engine (XLA fuses the
+per-level coupled step loop, the same step loop the other engines use).
 """
 
 from __future__ import annotations

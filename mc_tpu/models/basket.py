@@ -5,10 +5,10 @@ correlation structure; every payoff in the registry prices on the basket
 value ``B_t = sum_i w_i S_{i,t}`` (so basket calls, basket Asians, basket
 barrier/bullet contracts all work unchanged).
 
-TPU mapping: the asset dimension is a STATIC python loop over register
-tiles — for the d <= ~16 of practical baskets, the per-step work is d
-correlated normals (Cholesky mixing unrolled as scalar-times-tile FMAs on
-the VPU), d log-increment adds, and d exps, all on (tile_rows, 128) vregs.
+Device mapping: the asset dimension is a STATIC python loop over
+(tile_rows, 128) tiles — for the d <= ~16 of practical baskets, the
+per-step work is d correlated normals (Cholesky mixing unrolled as
+scalar-times-tile FMAs), d log-increment adds, and d exps.
 Draw layout: step j consumes pairs (j * ceil(d/2) + q), so the stream stays
 counter-based and tiling/sharding-invariant.
 
@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +34,8 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
+from mc_tpu.ops._pallas import (LANES, SUBLANES, fold_to_sublanes,
+                                kahan_xla_update, tile_path_ids,
                                 xla_moment_scan)
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
@@ -80,12 +81,13 @@ DEMO_BASKET = _demo_basket()
 
 
 def _basket_leg(payoff, d: int, n_steps: int, p, draw_pair,
-                antithetic_sign=1.0, on_step=None):
+                antithetic_sign=1.0, history=False):
     """Correlated log-Euler leg; basket value drives the payoff.
 
-    ``p`` carries per-asset scalars: p.s0s, p.weights (d-tuples of SMEM
+    ``p`` carries per-asset scalars: p.s0s, p.weights (d-tuples of
     scalars or traced values), p.chol (d x d nested tuple), p.drifts
-    (d-tuple of (r - sigma_i^2/2) dt).
+    (d-tuple of (r - sigma_i^2/2) dt).  ``history=True`` also returns the
+    per-step (basket level, payoff state) grids, shaped (n_steps, *tile).
     """
     sign = jnp.float32(antithetic_sign)
     n_pairs_per_step = (d + 1) // 2
@@ -121,17 +123,25 @@ def _basket_leg(payoff, d: int, n_steps: int, p, draw_pair,
         ws = step(j, ws)
         b = basket_of(ws)
         state = payoff.update(state, b, p)
-        if on_step is not None:
-            on_step(j, b, state)
-        return (ws, state)
+        return (ws, state), b
 
     z_probe, _ = draw_pair(0)  # fixes the tile shape
     zeros = jnp.zeros_like(z_probe)
     ws0 = tuple(zeros for _ in range(d))
     state0 = payoff.init(p, zeros)
-    ws, state = jax.lax.fori_loop(0, n_steps, body, (ws0, state0))
-    b_t = basket_of(ws)
-    return payoff.terminal(state, b_t, p)
+    if not history:
+        ws, state = jax.lax.fori_loop(
+            0, n_steps, lambda j, c: body(j, c)[0], (ws0, state0))
+        return payoff.terminal(state, basket_of(ws), p)
+
+    def scan_body(carry, j):
+        (ws, state), b = body(j, carry)
+        c = state[0] if payoff.n_state else jnp.zeros_like(b)
+        return (ws, state), (b, c)
+
+    (ws, state), (b_hist, c_hist) = jax.lax.scan(
+        scan_body, (ws0, state0), jnp.arange(n_steps, dtype=jnp.int32))
+    return payoff.terminal(state, basket_of(ws), p), b_hist, c_hist
 
 
 MAX_BASKET_D = 32  # unrolled Cholesky/mixing compile as O(d^2) scalar
@@ -142,11 +152,9 @@ def chol_scalars(cov, d: int):
     """Unrolled scalar Cholesky (Banachiewicz) of a tiny static-d SPD
     matrix -> nested lower-triangular tuples of traced scalars.
 
-    Replaces ``jnp.linalg.cholesky``, whose TPU lowering is a custom call
-    with ~1.5 ms invocation latency — measured to DOMINATE terminal-draw
-    kernels (the whole 1M-path rainbow kernel is ~0.2 ms of real work).
-    For the d <= ~16 of practical baskets the d^3/6 scalar ops fuse into
-    the surrounding program for free.
+    Replaces ``jnp.linalg.cholesky``, a library call outside the fused
+    program.  For the d <= ~16 of practical baskets the d^3/6 scalar ops
+    fuse into the surrounding program for free.
     """
     if d > MAX_BASKET_D:
         raise ValueError(
@@ -169,7 +177,7 @@ def chol_scalars(cov, d: int):
 
 def _basket_namespace(option, basket, n_steps: int):
     """Scalar-ized parameters (python tuples of traced scalars) shared by
-    the XLA dual and the kernel (which reads them from SMEM refs)."""
+    the pricers."""
     d = basket.d
     sig = basket.sigmas
     cov = (sig[:, None] * basket.corr * sig[None, :])
@@ -198,13 +206,12 @@ def _basket_namespace(option, basket, n_steps: int):
     return ns
 
 
-def _basket_tile(payoff, d, n_steps, antithetic, p, ids, valid, k0, k1,
-                 bitcast):
+def _basket_tile(payoff, d, n_steps, antithetic, p, ids, valid, k0, k1):
     shape = ids.shape
 
     def draw_pair(m):
         c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-        return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast)
+        return rng.normal_pair(k0, k1, ids, c1)
 
     pay = _basket_leg(payoff, d, n_steps, p, draw_pair)
     if antithetic:
@@ -213,7 +220,7 @@ def _basket_tile(payoff, d, n_steps, antithetic, p, ids, valid, k0, k1,
     return jnp.where(valid, pay, 0.0)
 
 
-# Basket params ship to the kernel as one flat f32 SMEM vector:
+# Basket params ship as one flat f32 vector:
 # [k, r, t, barrier, p1, p2, dt, inv_n, sqrt_dt, b0,
 #  s0s(d), weights(d), drifts(d), chol(lower-tri, d(d+1)/2)]
 _HDR = 10
@@ -244,56 +251,58 @@ def _unpack_basket(ref, d: int):
     return ns
 
 
-def _make_basket_kernel(payoff, cfg: pk.KernelConfig, d: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+def basket_trajectories(payoff, cfg: pk.KernelConfig, d: int, key,
+                        params):
+    """Materialize (basket level, payoff state) grids — step-major
+    (n_steps, n_tiles*tile_rows, 128) — plus the terminal payoff moment
+    slabs; the LSMC feed for American exercise on a basket."""
+    if payoff.n_state > 1:
+        raise ValueError("the basket trajectory engine stores one state "
+                         "array")
+    p = _unpack_basket(params, d)
+    k0 = jnp.asarray(key[0], jnp.uint32)
+    k1 = jnp.asarray(key[1], jnp.uint32)
+    shape = (cfg.tile_rows, LANES)
+    flat = tile_path_ids(0, shape)
 
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_basket(params_ref, d)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _basket_tile(payoff, d, cfg.n_steps, cfg.antithetic, p, ids,
-                           valid, key_ref[0], key_ref[1], pltpu.bitcast)
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
+    def one_tile(carry, i):
+        acc, comp = carry
+        ids = jnp.uint32(i * cfg.paths_per_tile) + flat
 
-    return kernel
+        def draw_pair(m):
+            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
+            return rng.normal_pair(k0, k1, ids, c1)
+
+        pay, b_hist, c_hist = _basket_leg(payoff, d, cfg.n_steps, p,
+                                          draw_pair, history=True)
+        pay = jnp.where(ids < jnp.uint32(cfg.n_paths), pay, 0.0)
+        for m, v in enumerate([pay, pay * pay]):
+            acc, comp = kahan_xla_update(acc, comp, m,
+                                         fold_to_sublanes(v, cfg.tile_rows))
+        return (acc, comp), (b_hist, c_hist)
+
+    zeros = jnp.zeros((2, SUBLANES, LANES), jnp.float32)
+    (acc, _), (b_tiles, c_tiles) = jax.lax.scan(
+        one_tile, (zeros, zeros), jnp.arange(cfg.n_tiles, dtype=jnp.uint32))
+    rows = cfg.n_tiles * cfg.tile_rows
+
+    def to_grid(x):  # (n_tiles, n_steps, tile_rows, 128) -> step-major
+        return jnp.moveaxis(x, 0, 1).reshape(cfg.n_steps, rows, LANES)
+
+    return to_grid(b_tiles), to_grid(c_tiles), acc[0], acc[1]
 
 
-def _basket_partials(payoff, cfg, d, key, ns, path_offset=0, n_valid=None,
-                     engine="pallas", interpret=None):
+def _basket_partials(payoff, cfg, d, key, ns, path_offset=0, n_valid=None):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range."""
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        params = _pack_basket(ns, d)
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_basket_kernel(payoff, cfg, d),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids, valid):
         pay = _basket_tile(payoff, d, cfg.n_steps, cfg.antithetic, ns,
-                           ids, valid, k0, k1,
-                           jax.lax.bitcast_convert_type)
+                           ids, valid, k0, k1)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -302,17 +311,14 @@ def _basket_partials(payoff, cfg, d, key, ns, path_offset=0, n_valid=None,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "d", "engine", "antithetic",
-                     "tile_rows", "interpret"))
-def _price_basket_impl(option, basket, payoff, sim, d, engine, antithetic,
-                       tile_rows, interpret, key):
-    if interpret is None:
-        interpret = use_interpret()
+    static_argnames=("payoff", "sim", "d", "antithetic",
+                     "tile_rows"))
+def _price_basket_impl(option, basket, payoff, sim, d, antithetic,
+                       tile_rows, key):
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic)
     ns = _basket_namespace(option, basket, sim.n_steps)
-    s, sq = _basket_partials(payoff, cfg, d, key, ns, engine=engine,
-                             interpret=interpret)
+    s, sq = _basket_partials(payoff, cfg, d, key, ns)
     r = jnp.float32(option.r)
     t = jnp.float32(option.t)
     return summarize(finish_sum(s), finish_sum(sq),
@@ -325,12 +331,10 @@ def price_basket(option: OptionParams = DEMO_OPTION,
                  sim: SimParams = DEMO_SIM,
                  payoff="vanilla_call",
                  *,
-                 engine: str = "pallas",
                  antithetic: bool = False,
                  tile_rows: int = 128,
                  stream: int = STREAM_OUTER,
-                 key=None,
-                 interpret: Optional[bool] = None) -> PriceResult:
+                 key=None) -> PriceResult:
     """Monte Carlo price of an option on a correlated multi-asset basket.
 
     Every registry payoff applies to the basket value B_t (basket call,
@@ -343,8 +347,8 @@ def price_basket(option: OptionParams = DEMO_OPTION,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0xBA5C),
                           jnp.uint32)
     return _price_basket_impl(option.as_f32(), b32, po,
-                              sim.replace(seed=0), b32.d, engine,
-                              antithetic, tile_rows, interpret, key)
+                              sim.replace(seed=0), b32.d,
+                              antithetic, tile_rows, key)
 
 
 # ---------------------------------------------------------------------------
@@ -353,71 +357,3 @@ def price_basket(option: OptionParams = DEMO_OPTION,
 # ---------------------------------------------------------------------------
 
 
-def _make_basket_traj_kernel(payoff, cfg: pk.KernelConfig, d: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert payoff.n_state <= 1, "trajectory kernel stores one state array"
-
-    def kernel(key_ref, params_ref, meta_ref, b_out, st_out, pay_sum,
-               pay_sq, comp_ref):
-        p = _unpack_basket(params_ref, d)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        k0, k1 = key_ref[0], key_ref[1]
-
-        def draw_pair(m):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=pltpu.bitcast)
-
-        def persist(j, b, state):
-            b_out[j] = b
-            st_out[j] = state[0] if payoff.n_state else jnp.zeros_like(b)
-
-        pay = _basket_leg(payoff, d, cfg.n_steps, p, draw_pair,
-                          on_step=persist)
-        pay = jnp.where(valid, pay, 0.0)
-        pk._accumulate_moments((pay_sum, pay_sq), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "d",
-                                             "interpret"))
-def basket_trajectories_kernel(payoff, cfg: pk.KernelConfig, d: int, key,
-                               params, n_valid=None, interpret=None):
-    """Materialize (basket level, payoff state) grids + terminal payoff
-    partials — step-major (n_steps, n_tiles*tile_rows, 128)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = use_interpret()
-    rows = cfg.n_tiles * cfg.tile_rows
-    grid_spec = pl.BlockSpec((cfg.n_steps, cfg.tile_rows, LANES),
-                             lambda i: (0, i, 0), memory_space=pltpu.VMEM)
-    part_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-    bound = (jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    return pl.pallas_call(
-        _make_basket_traj_kernel(payoff, cfg, d),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[grid_spec, grid_spec, part_spec, part_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params,
-      jnp.stack([jnp.uint32(0), bound]))

@@ -17,13 +17,13 @@ the jump substep is literally `merton._poisson_inv_cdf` +
 exact in law per step (compound-Poisson log increment), so the only
 discretization error is the Heston substep's own.
 
-TPU mapping: per step the Euler leg consumes three threefry counters
+Device mapping: per step the Euler leg consumes three threefry counters
 (diffusion Box-Muller pair, jump-size normal, Poisson uniform) and the
 QE leg four (QE normal pair, QE uniform, jump normal, Poisson uniform)
 — all derived from the (path id, step) counter, so the kernel stays
 stateless/tiling-invariant like every other family.  The Poisson
 inverse CDF is a branch-free fori_loop of static depth `kmax` (host
-pre-computed, tail < 1e-12), so the whole step fuses into one VPU pass.
+pre-computed, tail < 1e-12), so the whole step fuses into one vector pass.
 
 `bates_call_cf` is the semi-analytic oracle: the Bates characteristic
 function FACTORIZES as (Heston CF) x (compensated compound-Poisson CF),
@@ -39,7 +39,7 @@ import dataclasses
 import functools
 import math
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -54,8 +54,7 @@ from mc_tpu.models.merton import (_jump_increment, _poisson_inv_cdf,
                                   poisson_kmax)
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -200,24 +199,19 @@ def _bates_qe_leg(payoff, n_steps: int, kmax: int, p, s0, draw_pair,
 
 
 def _bates_tile(payoff, n_steps, kmax, antithetic, p, ids, valid,
-                k0, k1, bitcast, scheme="euler", rng_source="threefry13",
-                hw_tag=None):
+                k0, k1, scheme="euler", rng_source="threefry13"):
     shape = ids.shape
 
-    if rng_source == "hw":
-        draw_pair, draw_unit = pk.hw_model_draws(shape, k0, k1, hw_tag)
-    else:
-        rounds = 13 if rng_source == "threefry13" else 20
+    rounds = 13 if rng_source == "threefry13" else 20
 
-        def draw_pair(j):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast,
-                                   rounds=rounds)
+    def draw_pair(j):
+        c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
+        return rng.normal_pair(k0, k1, ids, c1, rounds=rounds)
 
-        def draw_unit(j):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
-            b0, _ = rng.threefry2x32(k0, k1, ids, c1, rounds=rounds)
-            return rng.bits_to_unit(b0, bitcast)
+    def draw_unit(j):
+        c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
+        b0, _ = rng.threefry2x32(k0, k1, ids, c1, rounds=rounds)
+        return rng.bits_to_unit(b0)
 
     s0 = jnp.full(shape, p.s0, jnp.float32)
     leg = _bates_qe_leg if scheme == "qe" else _bates_euler_leg
@@ -229,61 +223,20 @@ def _bates_tile(payoff, n_steps, kmax, antithetic, p, ids, valid,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_bates_kernel(payoff, cfg: pk.KernelConfig, kmax: int,
-                       scheme="euler"):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_bates(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _bates_tile(payoff, cfg.n_steps, kmax, cfg.antithetic, p,
-                          ids, valid, key_ref[0], key_ref[1],
-                          pltpu.bitcast, scheme=scheme,
-                          rng_source=cfg.rng_source,
-                          hw_tag=meta_ref[0] + jnp.uint32(i))
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
 def _bates_partials(payoff, cfg, kmax, key, params, path_offset=0,
-                    n_valid=None, engine="pallas", interpret=None,
+                    n_valid=None,
                     scheme="euler"):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range."""
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_bates_kernel(payoff, cfg, kmax, scheme),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     p = _unpack_bates(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids, valid):
         pay = _bates_tile(payoff, cfg.n_steps, kmax, cfg.antithetic, p,
-                          ids, valid, k0, k1,
-                          jax.lax.bitcast_convert_type, scheme=scheme)
+                          ids, valid, k0, k1, scheme=scheme)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -292,20 +245,16 @@ def _bates_partials(payoff, cfg, kmax, key, params, path_offset=0,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "kmax", "engine", "antithetic",
-                     "tile_rows", "interpret", "scheme", "rng_source"))
-def _price_bates_impl(option, dyn, payoff, sim, kmax, engine, antithetic,
-                      tile_rows, interpret, key, scheme="euler",
+    static_argnames=("payoff", "sim", "kmax", "antithetic",
+                     "tile_rows", "scheme", "rng_source"))
+def _price_bates_impl(option, dyn, payoff, sim, kmax, antithetic,
+                      tile_rows, key, scheme="euler",
                       rng_source="threefry13"):
-    if interpret is None:
-        interpret = use_interpret()
-    pk.check_hw_rng(rng_source, engine, antithetic)
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic,
                           rng_source=rng_source)
     params = _pack_bates(option, dyn, sim.n_steps)
     s, sq = _bates_partials(payoff, cfg, kmax, key, params,
-                            engine=engine, interpret=interpret,
                             scheme=scheme)
     r = jnp.asarray(option.r, jnp.float32)
     t = jnp.asarray(option.t, jnp.float32)
@@ -319,14 +268,12 @@ def price_bates(option: OptionParams = DEMO_OPTION,
                 sim: SimParams = DEMO_SIM,
                 payoff="vanilla_call",
                 *,
-                engine: str = "pallas",
                 scheme: str = "euler",
                 antithetic: bool = False,
                 tile_rows: int = 128,
                 stream: int = STREAM_OUTER,
                 key=None,
-                rng_source: str = "threefry13",
-                interpret: Optional[bool] = None) -> PriceResult:
+                rng_source: str = "threefry13") -> PriceResult:
     """Monte Carlo price under Bates SVJ dynamics.
 
     Every payoff in the registry works (they see only (state, S,
@@ -345,8 +292,8 @@ def price_bates(option: OptionParams = DEMO_OPTION,
         raise ValueError(f"unknown scheme {scheme!r} (euler | qe)")
     kmax = poisson_kmax(float(dyn.lam) * float(option.t) / sim.n_steps)
     return _price_bates_impl(option.as_f32(), dyn.as_f32(), po,
-                             sim.replace(seed=0), kmax, engine,
-                             antithetic, tile_rows, interpret, key,
+                             sim.replace(seed=0), kmax,
+                             antithetic, tile_rows, key,
                              scheme=scheme, rng_source=rng_source)
 
 

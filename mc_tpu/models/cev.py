@@ -8,11 +8,11 @@ oracle: the European call under CEV has a closed form in the noncentral
 chi-squared distribution (Schroder 1989), evaluated on the host with
 scipy.
 
-TPU mapping: same fused tile pattern as GBM, but the diffusion coefficient
+Device mapping: same fused tile pattern as GBM, but the diffusion coefficient
 depends on the state, so the price steps in LEVEL space (S_{t+1} =
 S_t + (r-q) S_t dt + sigma_lv S_t^beta sqrt(dt) z) with an absorbing floor
 at zero (the CEV boundary behaviour for beta < 1).  S^beta computes as
-exp(beta*log(S)) on the VPU.
+exp(beta*log(S)).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -31,8 +31,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -111,12 +110,12 @@ def _cev_leg(payoff, n_steps: int, p, s0, draw_pair, antithetic_sign=1.0):
     return payoff.terminal(state, s_t, p)
 
 
-def _cev_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1, bitcast):
+def _cev_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1):
     shape = ids.shape
 
     def draw_pair(m):
         c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-        return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast)
+        return rng.normal_pair(k0, k1, ids, c1)
 
     s0 = jnp.full(shape, p.s0, jnp.float32)
     pay = _cev_leg(payoff, n_steps, p, s0, draw_pair)
@@ -126,55 +125,18 @@ def _cev_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1, bitcast):
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_cev_kernel(payoff, cfg: pk.KernelConfig):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_cev(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _cev_tile(payoff, cfg.n_steps, cfg.antithetic, p, ids, valid,
-                        key_ref[0], key_ref[1], pltpu.bitcast)
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-def _cev_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
-                  engine="pallas", interpret=None):
+def _cev_partials(payoff, cfg, key, params, path_offset=0, n_valid=None):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range."""
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_cev_kernel(payoff, cfg),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     p = _unpack_cev(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids, valid):
         pay = _cev_tile(payoff, cfg.n_steps, cfg.antithetic, p, ids,
-                        valid, k0, k1, jax.lax.bitcast_convert_type)
+                        valid, k0, k1)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -183,17 +145,13 @@ def _cev_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "engine", "antithetic", "tile_rows",
-                     "interpret"))
-def _price_cev_impl(option, cev, payoff, sim, engine, antithetic, tile_rows,
-                    interpret, key):
-    if interpret is None:
-        interpret = use_interpret()
+    static_argnames=("payoff", "sim", "antithetic", "tile_rows"))
+def _price_cev_impl(option, cev, payoff, sim, antithetic, tile_rows,
+                    key):
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic)
     params = _pack_cev(option, cev, sim.n_steps)
-    s, sq = _cev_partials(payoff, cfg, key, params, engine=engine,
-                          interpret=interpret)
+    s, sq = _cev_partials(payoff, cfg, key, params)
     r = jnp.float32(option.r)
     t = jnp.float32(option.t)
     return summarize(finish_sum(s), finish_sum(sq),
@@ -206,12 +164,10 @@ def price_cev(option: OptionParams = DEMO_OPTION,
               sim: SimParams = DEMO_SIM,
               payoff="vanilla_call",
               *,
-              engine: str = "pallas",
               antithetic: bool = False,
               tile_rows: int = 128,
               stream: int = STREAM_OUTER,
-              key=None,
-              interpret: Optional[bool] = None) -> PriceResult:
+              key=None) -> PriceResult:
     """Monte Carlo price under CEV local volatility."""
     po = get_payoff(payoff)
     if sim.n_steps % 2:
@@ -220,8 +176,8 @@ def price_cev(option: OptionParams = DEMO_OPTION,
     if key is None:
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0xCE4), jnp.uint32)
     return _price_cev_impl(option.as_f32(), cev.as_f32(), po,
-                           sim.replace(seed=0), engine, antithetic,
-                           tile_rows, interpret, key)
+                           sim.replace(seed=0), antithetic,
+                           tile_rows, key)
 
 
 def cev_call_closed_form(s0, k, t, r, sigma_lv, beta, q=0.0) -> float:

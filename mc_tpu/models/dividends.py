@@ -7,8 +7,9 @@ exact in law, so the only discretization in the scheme is the (exact)
 placement of each payment at its step boundary — matched 1:1 by the
 quadrature oracle below, making the gate sharp rather than "close".
 
-TPU mapping: per-step dividend amounts ride the packed SMEM vector after
-the scalar head (the `models/term.py` per-step-curve pattern); the step
+Device mapping: per-step dividend amounts ride the packed parameter
+vector after the scalar head (the `models/term.py` per-step-curve
+pattern); the step
 keeps the price in LEVEL space (the cash drop breaks log-space
 accumulation) with one multiplicative exact-in-law GBM factor per step.
 
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import functools
 from types import SimpleNamespace
-from typing import Any, Optional, Sequence
+from typing import Sequence
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +36,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -106,14 +106,14 @@ def _divs_leg(payoff, n_steps: int, p, div_at, s0, draw_pair,
 
 
 def _divs_tile(payoff, n_steps, antithetic, params_ref, ids, valid, k0,
-               k1, bitcast):
+               k1):
     p = _unpack_divs_head(params_ref)
     div_at = lambda j: params_ref[_HDR + j]
     shape = ids.shape
 
     def draw_pair(m):
         c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-        return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast)
+        return rng.normal_pair(k0, k1, ids, c1)
 
     s0 = jnp.full(shape, 1.0, jnp.float32) * p.s0
     pay = _divs_leg(payoff, n_steps, p, div_at, s0, draw_pair)
@@ -123,56 +123,17 @@ def _divs_tile(payoff, n_steps, antithetic, params_ref, ids, valid, k0,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_divs_kernel(payoff, cfg: pk.KernelConfig):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _divs_tile(payoff, cfg.n_steps, cfg.antithetic, params_ref,
-                         ids, valid, key_ref[0], key_ref[1], pltpu.bitcast)
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-def _divs_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
-                   engine="pallas", interpret=None):
+def _divs_partials(payoff, cfg, key, params, path_offset=0, n_valid=None):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range."""
-    if engine not in ("pallas", "xla"):
-        raise ValueError(f"unknown engine {engine!r}; use 'pallas' or "
-                         "'xla'")
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_divs_kernel(payoff, cfg),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids, valid):
         pay = _divs_tile(payoff, cfg.n_steps, cfg.antithetic, params, ids,
-                         valid, k0, k1, jax.lax.bitcast_convert_type)
+                         valid, k0, k1)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -181,17 +142,13 @@ def _divs_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "engine", "antithetic", "tile_rows",
-                     "interpret"))
-def _price_divs_impl(option, divs, payoff, sim, engine, antithetic,
-                     tile_rows, interpret, key):
-    if interpret is None:
-        interpret = use_interpret()
+    static_argnames=("payoff", "sim", "antithetic", "tile_rows"))
+def _price_divs_impl(option, divs, payoff, sim, antithetic,
+                     tile_rows, key):
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic)
     params = _pack_divs(option, divs, sim.n_steps)
-    s, sq = _divs_partials(payoff, cfg, key, params, engine=engine,
-                           interpret=interpret)
+    s, sq = _divs_partials(payoff, cfg, key, params)
     r = jnp.float32(option.r)
     t = jnp.float32(option.t)
     return summarize(finish_sum(s), finish_sum(sq),
@@ -204,12 +161,10 @@ def price_divs(option: OptionParams = DEMO_OPTION,
                sim: SimParams = DEMO_SIM,
                payoff="vanilla_call",
                *,
-               engine: str = "pallas",
                antithetic: bool = False,
                tile_rows: int = 128,
                stream: int = STREAM_OUTER,
-               key=None,
-               interpret: Optional[bool] = None) -> PriceResult:
+               key=None) -> PriceResult:
     """Monte Carlo price under GBM with discrete CASH dividends.
 
     ``divs``: (n_steps,) per-step cash amounts (build with
@@ -231,8 +186,8 @@ def price_divs(option: OptionParams = DEMO_OPTION,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0xD1F),
                           jnp.uint32)
     return _price_divs_impl(option.as_f32(), divs, po,
-                            sim.replace(seed=0), engine, antithetic,
-                            tile_rows, interpret, key)
+                            sim.replace(seed=0), antithetic,
+                            tile_rows, key)
 
 
 # ---------------------------------------------------------------------------

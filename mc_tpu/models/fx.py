@@ -50,8 +50,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.reduce import finish_sum
 
 __all__ = ["FXDynamics", "price_fx", "quanto_option_params",
@@ -140,7 +139,7 @@ _FX_FIELDS = ("s0", "k", "x0", "kx", "x_bar", "rho", "rho_perp",
 
 
 def _pack_fx(option, fx):
-    """Flat f32 SMEM vector with both terminal laws precomputed."""
+    """Flat f32 parameter vector with both terminal laws precomputed."""
     s0, t, k, r, sigma_s, _, _, _, q = (jnp.float32(v)
                                         for v in option.astuple())
     rho = jnp.float32(fx.rho)
@@ -175,57 +174,11 @@ def _fx_vals(contract: str, p, valid, z0, z1):
     return [pay, pay * pay]
 
 
-def _make_fx_kernel(contract: str, cfg: pk.KernelConfig):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_fx(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        if cfg.rng_source == "hw":
-            draw_pair, _ = pk.hw_model_draws(
-                shape, key_ref[0], key_ref[1],
-                meta_ref[0] + jnp.uint32(i))
-            z0, z1 = draw_pair(0)
-        else:
-            c1 = jnp.zeros(shape, jnp.uint32)
-            z0, z1 = rng.normal_pair(key_ref[0], key_ref[1], ids, c1,
-                                     bitcast=pltpu.bitcast,
-                                     rounds=cfg.rng_rounds)
-        vals = _fx_vals(contract, p, valid, z0, z1)
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref, vals, i,
-                               cfg.tile_rows)
-
-    return kernel
-
-
-def _fx_partials(contract, cfg, key, params, offset, bound, engine,
-                 interpret):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+def _fx_partials(contract, cfg, key, params, offset, bound):
 
     offset = jnp.asarray(offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if bound is None
              else jnp.asarray(bound, jnp.uint32))
-    if engine == "pallas":
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_fx_kernel(contract, cfg),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     p = _unpack_fx(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
@@ -241,18 +194,14 @@ def _fx_partials(contract, cfg, key, params, offset, bound, engine,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("contract", "sim", "engine", "tile_rows",
-                     "interpret", "rng_source"))
-def _price_fx_impl(option, fx, contract, sim, engine, tile_rows,
-                   interpret, key, rng_source="threefry13"):
-    if interpret is None:
-        interpret = use_interpret()
-    pk.check_hw_rng(rng_source, engine)
+    static_argnames=("contract", "sim", "tile_rows",
+                     "rng_source"))
+def _price_fx_impl(option, fx, contract, sim, tile_rows,
+                   key, rng_source="threefry13"):
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=1,
                           tile_rows=tile_rows, rng_source=rng_source)
     params = _pack_fx(option, fx)
-    s, sq = _fx_partials(contract, cfg, key, params, 0, None, engine,
-                         interpret)
+    s, sq = _fx_partials(contract, cfg, key, params, 0, None)
     r = jnp.asarray(option.r, jnp.float32)
     t = jnp.asarray(option.t, jnp.float32)
     return summarize(finish_sum(s), finish_sum(sq),
@@ -265,12 +214,10 @@ def price_fx(option: OptionParams = DEMO_OPTION,
              sim: SimParams = DEMO_SIM,
              contract: str = "quanto_call",
              *,
-             engine: str = "pallas",
              tile_rows: int = 128,
              stream: int = STREAM_OUTER,
              key=None,
-             rng_source: str = "threefry13",
-             interpret: Optional[bool] = None) -> PriceResult:
+             rng_source: str = "threefry13") -> PriceResult:
     """Monte Carlo price of a cross-currency contract (`FX_CONTRACTS`).
 
     Terminal laws are exact so ``sim.n_steps`` is ignored (rainbow
@@ -279,15 +226,12 @@ def price_fx(option: OptionParams = DEMO_OPTION,
     model-family streams at the same seed.
     """
     contract = get_fx_contract(contract)
-    if engine not in ("pallas", "xla"):
-        raise ValueError(f"unknown engine {engine!r}; use 'pallas' or "
-                         "'xla'")
     if key is None:
         key = jnp.asarray(rng.derive_key(sim.seed, stream, FX_TAG),
                           jnp.uint32)
     return _price_fx_impl(option.as_f32(), fx.as_f32(), contract,
-                          sim.replace(seed=0), engine, tile_rows,
-                          interpret, key, rng_source=rng_source)
+                          sim.replace(seed=0), tile_rows,
+                          key, rng_source=rng_source)
 
 
 def quanto_option_params(option: OptionParams, fx: FXDynamics):

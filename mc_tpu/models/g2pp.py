@@ -49,6 +49,12 @@ __all__ = ["G2Dynamics", "price_g2_swaption",
            "price_bermudan_g2_swaption_qmc", "DEMO_G2"]
 
 
+def _mm(a, b):
+    """float32 product at full precision: a GPU would otherwise run it in
+    TF32, which keeps about three decimal digits."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 @dataclasses.dataclass(frozen=True)
 class G2Dynamics:
     """Two-factor parameters (host floats; all grid quantities are
@@ -244,89 +250,6 @@ def _g2_european_impl(spec, dyn, n_paths, key, consts):
     return summarize(jnp.sum(pay), jnp.sum(pay * pay), n, 1.0)
 
 
-# ---------------------------------------------------------------------------
-# Fused-engine European swaption (round 4): one Mosaic kernel — threefry
-# pair + inverse-CDF third normal, exact (x, y, int) draw through the 3x3
-# Cholesky, n_payments two-factor bond reconstructions, pathwise curve
-# discount, Kahan moment slabs — plus its bitwise XLA dual.  Same stream
-# and per-path arithmetic as `_g2_european_impl`, so all three engines
-# agree to summation order (the hullwhite fused-engine construction).
-#
-# NOTE (round 5, measured on-chip): "bitwise dual" binds the interpret
-# and XLA paths (same trace).  The COMPILED Mosaic kernel is held to
-# <= ~4 ulp of the dual instead: Mosaic's fma contraction inside the
-# lowered transcendentals is context-dependent (with intermediates
-# materialized the compiled kernel matches bit-for-bit; fused, ~15% of
-# paths drift 1 ulp) — tests_tpu/test_rates_device.py gates the bound.
-# ---------------------------------------------------------------------------
-
-_G2_SWPT_HEADER = 10  # ch00 ch10 ch11 ch20 ch21 ch22, P(0,t0), v0, Ktau, sign
-
-
-def _pack_g2_swpt(spec, dyn, consts):
-    """Flat f32 vector: Cholesky header + per-coupon (ratio, A, Ba, Bb)
-    tables — traced, so curve bumps re-price with zero recompiles."""
-    p0, vhalf, amat, bamat, bbmat = consts
-    n = spec.n_payments
-    _, _, _, _, ch = _step_chol(dyn, spec.expiry)
-    head = jnp.asarray([ch[0, 0], ch[1, 0], ch[1, 1], ch[2, 0],
-                        ch[2, 1], ch[2, 2], p0[0], vhalf[0],
-                        spec.k_rate * spec.tenor,
-                        1.0 if spec.payer else -1.0], jnp.float32)
-    ratio = jnp.asarray([p0[j] / p0[0] for j in range(1, n + 1)],
-                        jnp.float32)
-    aj = jnp.asarray(amat[0, 1:n + 1], jnp.float32)
-    baj = jnp.asarray(bamat[0, 1:n + 1], jnp.float32)
-    bbj = jnp.asarray(bbmat[0, 1:n + 1], jnp.float32)
-    return jnp.concatenate([head, ratio, aj, baj, bbj])
-
-
-def _g2_swpt_tile(n_pay, pv, ids, valid, k0, k1, bitcast):
-    """Per-tile payoff, op-for-op the `_g2_european_impl` arithmetic
-    (threefry pair at (id, 0), inverse-CDF normal at (id, 1))."""
-    shape = ids.shape
-    c1 = jnp.full(shape, 0, jnp.uint32)
-    w0, w1 = rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast)
-    bits, _ = rng.threefry2x32(k0, k1, ids, c1 + jnp.uint32(1),
-                               rounds=rng.DEFAULT_ROUNDS)
-    w2 = rng.inv_normal_cdf(rng.bits_to_unit(bits, bitcast))
-    x = pv[0] * w0                              # x0 = y0 = z0 = 0
-    y = pv[1] * w0 + pv[2] * w1
-    z = pv[3] * w0 + pv[4] * w1 + pv[5] * w2
-    fixed = jnp.zeros(shape, jnp.float32)
-    h = _G2_SWPT_HEADER
-    for j in range(n_pay):
-        p_j = pv[h + j] * jnp.exp(pv[h + n_pay + j]
-                                  - pv[h + 2 * n_pay + j] * x
-                                  - pv[h + 3 * n_pay + j] * y)
-        fixed = fixed + pv[8] * p_j
-        if j == n_pay - 1:
-            fixed = fixed + p_j
-    mtm = (1.0 - fixed) * pv[9]
-    pay = jnp.maximum(mtm, 0.0) * pv[6] * jnp.exp(-z - pv[7])
-    return jnp.where(valid, pay, 0.0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("n_pay", "n_paths", "engine",
-                                    "tile_rows", "interpret"))
-def _g2_european_fused_impl(n_pay, n_paths, engine, tile_rows,
-                            interpret, key, pv):
-    from mc_tpu.ops import path_kernels as pk
-    from mc_tpu.ops._pallas import use_interpret
-    from mc_tpu.ops.reduce import finish_sum
-    if interpret is None:
-        interpret = use_interpret()
-    from mc_tpu.ops._pallas import fused_moment_partials
-    cfg = pk.KernelConfig(n_paths=n_paths, n_steps=1,
-                          tile_rows=tile_rows)
-    s, sq = fused_moment_partials(
-        functools.partial(_g2_swpt_tile, n_pay), cfg, key, pv,
-        engine=engine, interpret=interpret)
-    return summarize(finish_sum(s), finish_sum(sq),
-                     jnp.asarray(n_paths, jnp.float32), jnp.float32(1.0))
-
-
 def price_g2_swaption(spec: SwaptionSpec = DEMO_SWAPTION,
                       dyn: G2Dynamics = DEMO_G2,
                       curve: DiscountCurve = DEMO_CURVE,
@@ -334,9 +257,6 @@ def price_g2_swaption(spec: SwaptionSpec = DEMO_SWAPTION,
                                                  n_steps=1),
                       *,
                       projection_curve: Optional[DiscountCurve] = None,
-                      engine: Optional[str] = None,
-                      tile_rows: int = 128,
-                      interpret: Optional[bool] = None,
                       seed: Optional[int] = None,
                       stream: int = STREAM_OUTER) -> PriceResult:
     """European payer/receiver swaption under curve-fitted G2++: ONE
@@ -345,27 +265,11 @@ def price_g2_swaption(spec: SwaptionSpec = DEMO_SWAPTION,
 
     ``projection_curve``: MULTI-CURVE — forwards off this curve,
     discounting off ``curve``; oracle `oracle.g2_swaption_multicurve`
-    (direct 2-D quadrature).
-
-    ``engine``: None (default) — the classic single-fusion XLA program;
-    "pallas" — ONE fused Mosaic kernel; "xla" — its bitwise dual (same
-    tile fold); all three share the threefry stream (single-curve
-    only; see `price_hw_swaption` for the measurement contract)."""
+    (direct 2-D quadrature)."""
     spec = spec.validate()
     consts = _g2_tables(spec, dyn, curve)
     seed = sim.seed if seed is None else seed
     key = jnp.asarray(rng.derive_key(seed, stream, 0x6270), jnp.uint32)
-    if engine is not None:
-        if engine not in ("pallas", "xla"):
-            raise ValueError(f"engine must be pallas|xla, got {engine!r}")
-        if projection_curve is not None:
-            raise ValueError("the fused engines are single-curve; "
-                             "multi-curve pricing uses the default "
-                             "engine (projection_curve without engine=)")
-        pv = _pack_g2_swpt(spec, dyn, consts)
-        return _g2_european_fused_impl(spec.n_payments, sim.n_paths,
-                                       engine, tile_rows, interpret,
-                                       key, pv)
     if projection_curve is not None:
         from mc_tpu.models.hullwhite import _hw_mc_weights
         weights = _hw_mc_weights(spec, curve, projection_curve)
@@ -417,12 +321,12 @@ def _fit_g2_bermudan(spec, dyn, grid, degree, consts):
         itm = ex > 0.0
         xb = _g2_basis(x, y, jnp.float32(sx), jnp.float32(sy), degree)
         w = jnp.where(itm, 1.0, 0.0)[:, None]
-        xtx = (xb * w).T @ xb + 1e-6 * jnp.eye(xb.shape[1],
+        xtx = _mm((xb * w).T, xb) + 1e-6 * jnp.eye(xb.shape[1],
                                                dtype=xb.dtype)
-        xty = (xb * w).T @ (cf / disc(i))
+        xty = _mm((xb * w).T, cf / disc(i))
         beta = jax.lax.stop_gradient(jnp.linalg.solve(xtx, xty))
         betas[i] = beta
-        cont = xb @ beta
+        cont = _mm(xb, beta)
         take = jnp.logical_and(itm, ex > cont)
         cf = jnp.where(take,
                        ex * jnp.float32(p0[i])
@@ -479,13 +383,13 @@ def _g2_swaption_sharded_impl(spec, dyn, n_paths, degree, style, mesh,
                 xb = _g2_basis(x, y, jnp.float32(sx), jnp.float32(sy),
                                degree)
                 w = jnp.where(itm, 1.0, 0.0)[:, None]
-                xtx = (jax.lax.psum((xb * w).T @ xb, PATHS_AXIS)
+                xtx = (jax.lax.psum(_mm((xb * w).T, xb), PATHS_AXIS)
                        + 1e-6 * jnp.eye(xb.shape[1], dtype=xb.dtype))
-                xty = jax.lax.psum((xb * w).T @ (cf / dfac(i)),
+                xty = jax.lax.psum(_mm((xb * w).T, cf / dfac(i)),
                                    PATHS_AXIS)
                 beta = jax.lax.stop_gradient(
                     jnp.linalg.solve(xtx, xty))
-                cont = xb @ beta
+                cont = _mm(xb, beta)
                 take = jnp.logical_and(itm, ex > cont)
                 cf = jnp.where(take, ex * dfac(i), cf)
         cf = jnp.where(mask, cf, 0.0)
@@ -533,7 +437,6 @@ def price_g2_swaption_sharded(spec: SwaptionSpec = DEMO_SWAPTION,
 def _g2_qmc_shift_fn(spec, dyn, n, zvec, consts):
     """shift -> per-shift sample mean for the 3-dim G2 Sobol net; the
     shared body of the single-chip and shift-sharded QMC programs."""
-    import jax.lax as lax
 
     from mc_tpu.qmc import _sobol_u
 
@@ -544,8 +447,7 @@ def _g2_qmc_shift_fn(spec, dyn, n, zvec, consts):
     def one_shift(shift):
         def zdim(j):
             return rng.inv_normal_cdf(
-                _sobol_u(ids, zvec, shift, jnp.int32(j),
-                         lax.bitcast_convert_type))
+                _sobol_u(ids, zvec, shift, jnp.int32(j)))
 
         w0, w1, w2 = zdim(0), zdim(1), zdim(2)
         x = jnp.float32(ch[0, 0]) * w0
@@ -669,7 +571,6 @@ def _g2_bermudan_qmc_shift_fn(spec, dyn, n, degree, zvec, betas,
                               consts):
     """shift -> frozen-policy per-shift mean (two-factor Bermudan);
     shared by the single-chip and shift-sharded programs."""
-    import jax.lax as lax
 
     from mc_tpu.qmc import _sobol_u
 
@@ -684,8 +585,7 @@ def _g2_bermudan_qmc_shift_fn(spec, dyn, n, degree, zvec, betas,
     def one_shift(shift):
         def zdim(j):
             return rng.inv_normal_cdf(
-                _sobol_u(ids, zvec, shift, jnp.int32(j),
-                         lax.bitcast_convert_type))
+                _sobol_u(ids, zvec, shift, jnp.int32(j)))
 
         x = jnp.zeros((n,), jnp.float32)
         y = jnp.zeros((n,), jnp.float32)
@@ -708,7 +608,7 @@ def _g2_bermudan_qmc_shift_fn(spec, dyn, n, degree, zvec, betas,
             ex = jnp.maximum(_g2_mtm(spec, i, x, y, p0, amat, bamat,
                                      bbmat), 0.0)
             if i < n_ex - 1:
-                cont = _g2_basis(x, y, sx, sy, degree) @ betas[i]
+                cont = _mm(_g2_basis(x, y, sx, sy, degree), betas[i])
                 take = jnp.logical_and(ex > 0.0, ex > cont)
             else:
                 take = ex > 0.0
@@ -1096,9 +996,9 @@ def _g2_policy_machinery(spec, dyn, degree, betas, key, consts):
             exercise=lambda u, st: jnp.maximum(
                 _g2_mtm(spec, u, st[0], st[1], p0, amat, bamat, bbmat),
                 0.0),
-            continuation=lambda u, st: (
+            continuation=lambda u, st: _mm(
                 _g2_basis(st[0], st[1], jnp.float32(sx),
-                          jnp.float32(sy), degree) @ betas[u]),
+                          jnp.float32(sy), degree), betas[u]),
             cashflow=lambda u, ex, st: (
                 ex * jnp.float32(p0[u])
                 * jnp.exp(-st[2] - jnp.float32(vhalf[u]))))
@@ -1175,8 +1075,8 @@ def _g2_bermudan_exposure_impl(spec, dyn, n_paths, n_inner, n_fit,
         ex = jnp.maximum(_g2_mtm(spec, i, x, y, p0, amat, bamat, bbmat),
                          0.0)
         if i < n_ex - 1:
-            cont = _g2_basis(x, y, jnp.float32(sx), jnp.float32(sy),
-                             degree) @ betas[i]
+            cont = _mm(_g2_basis(x, y, jnp.float32(sx), jnp.float32(sy),
+                                 degree), betas[i])
             take = jnp.logical_and(ex > 0.0, ex > cont)
         else:
             take = ex > 0.0

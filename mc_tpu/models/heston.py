@@ -10,7 +10,7 @@ the standard robust choice: v may go negative in the discretization but
 only v+ = max(v, 0) enters the diffusion terms, keeping the scheme
 unbiased-in-the-limit without reflection artifacts.
 
-TPU mapping: each step consumes exactly one threefry Box-Muller pair
+Kernel mapping: each step consumes exactly one threefry Box-Muller pair
 (z_v, z_perp) — counter (path id, step) — and correlates them in-register
 (z_s = rho z_v + sqrt(1-rho^2) z_perp).  The price accumulates in log
 space like the GBM kernels (one exp rounding per S_t).  The payoff
@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -38,8 +38,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -116,10 +115,10 @@ def heston_euler_step(p, w, v, z_v, z_perp, dt, sqrt_dt):
 # discretization.  Weak error is orders of magnitude below full-truncation
 # Euler at coarse step counts (the QE tests gate this against the CF
 # oracle at n_steps=8 where Euler is visibly biased), and the variance
-# stays >= 0 by construction.  Branch-free TPU mapping: both the
+# stays >= 0 by construction.  Branch-free device mapping: both the
 # quadratic (psi <= 1.5) and exponential (psi > 1.5) samplers evaluate on
 # every lane with domain-safe arguments and a `where` select — no
-# data-dependent control flow, so the step fuses into one VPU pass.
+# data-dependent control flow, so the step fuses into one vector pass.
 # ---------------------------------------------------------------------------
 
 _PSI_C = 1.5          # Andersen's switching threshold
@@ -273,24 +272,18 @@ def _heston_leg(payoff, n_steps: int, p, s0, draw_pair, antithetic_sign=1.0):
 
 
 def _heston_tile(payoff, n_steps, tile_rows, antithetic, p, ids, valid,
-                 k0, k1, bitcast, scheme="euler", rng_source="threefry13",
-                 hw_tag=None):
+                 k0, k1, scheme="euler", rng_source="threefry13"):
     shape = ids.shape
+    rounds = 13 if rng_source == "threefry13" else 20
 
-    if rng_source == "hw":
-        draw_pair, draw_unit = pk.hw_model_draws(shape, k0, k1, hw_tag)
-    else:
-        rounds = 13 if rng_source == "threefry13" else 20
+    def draw_pair(j):
+        c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
+        return rng.normal_pair(k0, k1, ids, c1, rounds=rounds)
 
-        def draw_pair(j):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast,
-                                   rounds=rounds)
-
-        def draw_unit(j):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
-            b0, _ = rng.threefry2x32(k0, k1, ids, c1, rounds=rounds)
-            return rng.bits_to_unit(b0, bitcast)
+    def draw_unit(j):
+        c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
+        b0, _ = rng.threefry2x32(k0, k1, ids, c1, rounds=rounds)
+        return rng.bits_to_unit(b0)
 
     s0 = jnp.full(shape, p.s0, jnp.float32)
     if scheme == "qe":
@@ -305,53 +298,8 @@ def _heston_tile(payoff, n_steps, tile_rows, antithetic, p, ids, valid,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_heston_kernel(payoff, cfg: pk.KernelConfig, scheme="euler"):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_heston(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _heston_tile(payoff, cfg.n_steps, cfg.tile_rows,
-                           cfg.antithetic, p, ids, valid,
-                           key_ref[0], key_ref[1], pltpu.bitcast,
-                           scheme=scheme, rng_source=cfg.rng_source,
-                           hw_tag=meta_ref[0] + jnp.uint32(i))
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-def _heston_partials_pallas(payoff, cfg, key, params, path_offset, n_valid,
-                            interpret, scheme="euler"):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    offset = jnp.asarray(path_offset, jnp.uint32)
-    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _make_heston_kernel(payoff, cfg, scheme),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[acc_spec, acc_spec],
-        out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32)] * 2,
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
-
-
-def _heston_partials_xla(payoff, cfg, key, params, path_offset, n_valid,
-                         scheme="euler"):
+def _heston_partials(payoff, cfg, key, params, path_offset, n_valid,
+                     scheme="euler"):
     p = _unpack_heston(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
@@ -359,7 +307,7 @@ def _heston_partials_xla(payoff, cfg, key, params, path_offset, n_valid,
     def tile_fn(ids, valid):
         pay = _heston_tile(payoff, cfg.n_steps, cfg.tile_rows,
                            cfg.antithetic, p, ids, valid, k0, k1,
-                           jax.lax.bitcast_convert_type, scheme=scheme)
+                           scheme=scheme, rng_source=cfg.rng_source)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -368,24 +316,16 @@ def _heston_partials_xla(payoff, cfg, key, params, path_offset, n_valid,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "engine", "antithetic", "tile_rows",
-                     "interpret", "scheme", "rng_source"))
-def _price_heston_impl(option, heston, payoff, sim, engine, antithetic,
-                       tile_rows, interpret, key, scheme="euler",
-                       rng_source="threefry13"):
-    if interpret is None:
-        interpret = use_interpret()
-    pk.check_hw_rng(rng_source, engine, antithetic)
+    static_argnames=("payoff", "sim", "antithetic", "tile_rows", "scheme",
+                     "rng_source"))
+def _price_heston_impl(option, heston, payoff, sim, antithetic, tile_rows,
+                       key, scheme="euler", rng_source="threefry13"):
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic,
                           rng_source=rng_source)
     params = _pack_heston(option, heston, sim.n_steps)
-    if engine == "pallas":
-        s, sq = _heston_partials_pallas(payoff, cfg, key, params, 0, None,
-                                        interpret, scheme=scheme)
-    else:
-        s, sq = _heston_partials_xla(payoff, cfg, key, params, 0, None,
-                                     scheme=scheme)
+    s, sq = _heston_partials(payoff, cfg, key, params, 0, None,
+                             scheme=scheme)
     r = jnp.asarray(option.r, jnp.float32)
     t = jnp.asarray(option.t, jnp.float32)
     return summarize(finish_sum(s), finish_sum(sq),
@@ -398,22 +338,18 @@ def price_heston(option: OptionParams = DEMO_OPTION,
                  sim: SimParams = DEMO_SIM,
                  payoff="vanilla_call",
                  *,
-                 engine: str = "pallas",
                  scheme: str = "euler",
                  antithetic: bool = False,
                  tile_rows: int = 128,
                  stream: int = STREAM_OUTER,
                  key=None,
-                 rng_source: str = "threefry13",
-                 interpret: Optional[bool] = None) -> PriceResult:
+                 rng_source: str = "threefry13") -> PriceResult:
     """Monte Carlo price under Heston stochastic volatility.
 
     Every payoff in the registry works (they see only (state, S, params)).
     Counter layout: one threefry pair per (path, step) — independent of the
     GBM stream convention, so Heston and GBM runs at the same seed do not
-    share draws.  ``rng_source="hw"`` swaps in the stateful hardware PRNG
-    (pallas-only, no antithetic, stream not tiling-invariant) — the same
-    opt-in fast path as the GBM kernels.
+    share draws.
     """
     po = get_payoff(payoff)
     if po.terminal_only and po.name.startswith("vanilla"):
@@ -423,10 +359,10 @@ def price_heston(option: OptionParams = DEMO_OPTION,
                           jnp.uint32)
     if scheme not in ("euler", "qe"):
         raise ValueError(f"unknown scheme {scheme!r} (euler | qe)")
+    pk.check_rng_source(rng_source)
     return _price_heston_impl(option.as_f32(), heston.as_f32(), po,
-                              sim.replace(seed=0), engine, antithetic,
-                              tile_rows, interpret, key, scheme=scheme,
-                              rng_source=rng_source)
+                              sim.replace(seed=0), antithetic, tile_rows,
+                              key, scheme=scheme, rng_source=rng_source)
 
 
 def heston_call_cf(s0, k, t, r, v0, kappa, theta, xi, rho, q=0.0,
@@ -467,97 +403,3 @@ def heston_call_cf(s0, k, t, r, v0, kappa, theta, xi, rho, q=0.0,
     # E[S_T] = s0 e^{(r-q)T}.  (Regression-gated at q != 0 against the
     # xi -> 0 Black-Scholes limit in tests/test_heston.py.)
     return s0 * np.exp(-q * t) * p1 - k * np.exp(-r * t) * p2
-
-
-# ---------------------------------------------------------------------------
-# Trajectory materialization under Heston: the (S_t, v_t, state_t) grids
-# that feed LSMC (American exercise under stochastic volatility) — the
-# Heston analogue of the C9 state-grid kernel (trajectories.cuh:273-351).
-# ---------------------------------------------------------------------------
-
-
-def _make_heston_traj_kernel(payoff, cfg: pk.KernelConfig):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert payoff.n_state <= 1, "trajectory kernel stores one state array"
-
-    def kernel(key_ref, params_ref, meta_ref, s_out, v_out, st_out,
-               pay_sum, pay_sq, comp_ref):
-        p = _unpack_heston(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        k0, k1 = key_ref[0], key_ref[1]
-
-        def draw_pair(j):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(j, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=pltpu.bitcast)
-
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        state0 = payoff.init(p, jnp.zeros_like(s0))
-
-        def body(j, carry):
-            w, v, s, state = carry
-            z_v, z_perp = draw_pair(j)
-            w, v = heston_euler_step(p, w, v, z_v, z_perp, p.dt, p.sqrt_dt)
-            s = s0 * jnp.exp(w)
-            state = payoff.update(state, s, p)
-            s_out[j] = s
-            v_out[j] = v
-            st_out[j] = state[0] if payoff.n_state else jnp.zeros_like(s)
-            return (w, v, s, state)
-
-        w0 = jnp.zeros_like(s0)
-        v_init = jnp.full_like(s0, p.v0)
-        _, _, s_t, state = jax.lax.fori_loop(
-            0, cfg.n_steps, body, (w0, v_init, s0, state0))
-        pay = jnp.where(valid, payoff.terminal(state, s_t, p), 0.0)
-        pk._accumulate_moments((pay_sum, pay_sq), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "interpret"))
-def heston_trajectories_kernel(payoff, cfg: pk.KernelConfig, key, params,
-                               path_offset=0, n_valid=None, interpret=None):
-    """Materialize (S, v, state) grids + terminal payoff partials.
-
-    Grids are step-major (n_steps, n_tiles*tile_rows, 128) like the GBM
-    trajectory kernel; ``v`` is the raw full-truncation variance state
-    (clip at 0 before using it as a regressor).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from mc_tpu.ops._pallas import SUBLANES, use_interpret
-    if interpret is None:
-        interpret = use_interpret()
-    rows = cfg.n_tiles * cfg.tile_rows
-    grid_spec = pl.BlockSpec((cfg.n_steps, cfg.tile_rows, LANES),
-                             lambda i: (0, i, 0), memory_space=pltpu.VMEM)
-    part_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-    offset = jnp.asarray(path_offset, jnp.uint32)
-    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    return pl.pallas_call(
-        _make_heston_traj_kernel(payoff, cfg),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[grid_spec, grid_spec, grid_spec, part_spec, part_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))

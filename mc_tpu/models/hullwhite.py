@@ -53,6 +53,12 @@ __all__ = ["DiscountCurve", "HullWhiteDynamics", "price_hw_swaption",
            "DEMO_CURVE", "DEMO_HW"]
 
 
+def _mm(a, b):
+    """float32 product at full precision: a GPU would otherwise run it in
+    TF32, which keeps about three decimal digits."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 class DiscountCurve:
     """P(0, t) from zero-rate knots (host-side, float64).
 
@@ -278,89 +284,6 @@ def _hw_european_impl(spec, a, sigma_r, n_paths, key, p0_0, c_0, consts):
     return summarize(jnp.sum(pay), jnp.sum(pay * pay), n, 1.0)
 
 
-# ---------------------------------------------------------------------------
-# Fused-engine European swaption (round 4, VERDICT r03 item 4): one Mosaic
-# kernel per chip — threefry pair, exact (x, int x) draw, n_payments bond
-# reconstructions, pathwise curve discount, Kahan moment slabs — plus its
-# bitwise XLA dual (identical tile fold).  The classic `_hw_european_impl`
-# single-fusion XLA program stays the DEFAULT until the on-chip
-# measurement decides (BASELINE.md "Curve rates"): per path the payoff
-# arithmetic is identical (same threefry stream, same op order), so the
-# fused pair agrees with it to summation order (<= 3e-7 rel, gated).
-#
-# NOTE (round 5, measured on-chip): "bitwise dual" binds the interpret
-# and XLA paths (same trace).  The COMPILED Mosaic kernel is held to
-# <= ~4 ulp of the dual instead: Mosaic's fma contraction inside the
-# lowered transcendentals is context-dependent (with intermediates
-# materialized the compiled kernel matches bit-for-bit; fused, ~15% of
-# paths drift 1 ulp) — tests_tpu/test_rates_device.py gates the bound.
-# ---------------------------------------------------------------------------
-
-_HW_SWPT_HEADER = 7  # l11, l21, l22, P(0,t0), c0, K*tau, payer sign
-
-
-def _pack_hw_swpt(a, sigma_r, spec, p0, c, bmat, corr):
-    """One flat f32 vector: header + per-coupon (ratio, B, corr) tables.
-    Traced (curve/vol bumps re-price with zero recompiles); the
-    l-coefficients replicate `_exact_xy_coeffs`' f32 arithmetic."""
-    from mc_tpu.models.swaption import _exact_xy_coeffs
-    n = spec.n_payments
-    _, _, l11, l21, l22 = _exact_xy_coeffs(a, sigma_r,
-                                           jnp.float32(spec.expiry))
-    head = jnp.stack([
-        jnp.asarray(l11, jnp.float32), jnp.asarray(l21, jnp.float32),
-        jnp.asarray(l22, jnp.float32),
-        jnp.float32(p0[0]), jnp.float32(c[0]),
-        jnp.float32(spec.k_rate * spec.tenor),
-        jnp.float32(1.0 if spec.payer else -1.0)])
-    ratio = jnp.asarray([p0[j] / p0[0] for j in range(1, n + 1)],
-                        jnp.float32)
-    bj = jnp.asarray(bmat[0, 1:n + 1], jnp.float32)
-    cj = jnp.asarray(corr[0, 1:n + 1], jnp.float32)
-    return jnp.concatenate([head, ratio, bj, cj])
-
-
-def _hw_swpt_tile(n_pay, pv, ids, valid, k0, k1, bitcast):
-    """Per-tile payoff, op-for-op the `_hw_european_impl` arithmetic
-    (same threefry pair (id, 0), same bond loop, same discount)."""
-    shape = ids.shape
-    c1 = jnp.full(shape, 0, jnp.uint32)
-    z0, z1 = rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast)
-    x = pv[0] * z0                    # x0 = 0: the expiry draw exactly
-    y = pv[1] * z0 + pv[2] * z1
-    fixed = jnp.zeros(shape, jnp.float32)
-    h = _HW_SWPT_HEADER
-    for j in range(n_pay):
-        p_j = pv[h + j] * jnp.exp(-pv[h + n_pay + j] * x
-                                  - pv[h + 2 * n_pay + j])
-        fixed = fixed + pv[5] * p_j
-        if j == n_pay - 1:
-            fixed = fixed + p_j       # principal rides the last bond
-    swap = (1.0 - fixed) * pv[6]
-    pay = jnp.maximum(swap, 0.0) * pv[3] * jnp.exp(-y - pv[4])
-    return jnp.where(valid, pay, 0.0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("n_pay", "n_paths", "engine",
-                                    "tile_rows", "interpret"))
-def _hw_european_fused_impl(n_pay, n_paths, engine, tile_rows,
-                            interpret, key, pv):
-    from mc_tpu.ops import path_kernels as pk
-    from mc_tpu.ops._pallas import use_interpret
-    from mc_tpu.ops.reduce import finish_sum
-    if interpret is None:
-        interpret = use_interpret()
-    from mc_tpu.ops._pallas import fused_moment_partials
-    cfg = pk.KernelConfig(n_paths=n_paths, n_steps=1,
-                          tile_rows=tile_rows)
-    s, sq = fused_moment_partials(
-        functools.partial(_hw_swpt_tile, n_pay), cfg, key, pv,
-        engine=engine, interpret=interpret)
-    return summarize(finish_sum(s), finish_sum(sq),
-                     jnp.asarray(n_paths, jnp.float32), jnp.float32(1.0))
-
-
 @functools.partial(jax.jit, static_argnames=("spec", "n_paths"))
 def _hw_european_mc_impl(spec, a, sigma_r, n_paths, key, p0_0, c_0,
                          consts, weights):
@@ -383,9 +306,6 @@ def price_hw_swaption(spec: SwaptionSpec = DEMO_SWAPTION,
                                                  n_steps=1),
                       *,
                       projection_curve: Optional[DiscountCurve] = None,
-                      engine: Optional[str] = None,
-                      tile_rows: int = 128,
-                      interpret: Optional[bool] = None,
                       seed: Optional[int] = None,
                       stream: int = STREAM_OUTER) -> PriceResult:
     """European payer/receiver swaption under curve-fitted Hull-White:
@@ -397,31 +317,11 @@ def price_hw_swaption(spec: SwaptionSpec = DEMO_SWAPTION,
     curve while cash flows discount off ``curve`` (OIS), linked by a
     deterministic multiplicative basis (one factor drives both).
     Oracle: `oracle.hw_swaption_multicurve` (direct quadrature — the
-    mixed-sign bond weights break Jamshidian's monotonicity).
-
-    ``engine``: None (default) — the classic single-fusion XLA program;
-    "pallas" — ONE fused Mosaic kernel (threefry + draw + bonds +
-    discount + Kahan moment slabs in-register); "xla" — the kernel's
-    bitwise dual (identical tile fold).  Same threefry stream as the
-    default, so all three agree per-path exactly and in total to
-    summation order (the on-chip measurement in BASELINE.md "Curve
-    rates" decides the production default).  Single-curve only."""
+    mixed-sign bond weights break Jamshidian's monotonicity)."""
     spec = spec.validate()
     p0, c, bmat, corr = _hw_tables(spec, dyn, curve)
     seed = sim.seed if seed is None else seed
     key = jnp.asarray(rng.derive_key(seed, stream, 0x4877), jnp.uint32)
-    if engine is not None:
-        if engine not in ("pallas", "xla"):
-            raise ValueError(f"engine must be pallas|xla, got {engine!r}")
-        if projection_curve is not None:
-            raise ValueError("the fused engines are single-curve; "
-                             "multi-curve pricing uses the default "
-                             "engine (projection_curve without engine=)")
-        pv = _pack_hw_swpt(jnp.float32(dyn.a), jnp.float32(dyn.sigma_r),
-                           spec, p0, c, bmat, corr)
-        return _hw_european_fused_impl(spec.n_payments, sim.n_paths,
-                                       engine, tile_rows, interpret,
-                                       key, pv)
     if projection_curve is not None:
         weights = _hw_mc_weights(spec, curve, projection_curve)
         return _hw_european_mc_impl(
@@ -437,7 +337,6 @@ def price_hw_swaption(spec: SwaptionSpec = DEMO_SWAPTION,
 def _hw_qmc_shift_fn(spec, a, sigma_r, n, zvec, p0_0, c_0, consts):
     """shift -> per-shift sample mean for the 2-dim HW Sobol net; the
     shared body of the single-chip and shift-sharded QMC programs."""
-    import jax.lax as lax
 
     from mc_tpu.models.swaption import _exact_xy_coeffs
     from mc_tpu.qmc import _sobol_u
@@ -448,10 +347,8 @@ def _hw_qmc_shift_fn(spec, a, sigma_r, n, zvec, p0_0, c_0, consts):
         a, sigma_r, jnp.float32(spec.expiry))
 
     def one_shift(shift):
-        u0 = _sobol_u(ids, zvec, shift, jnp.int32(0),
-                      lax.bitcast_convert_type)
-        u1 = _sobol_u(ids, zvec, shift, jnp.int32(1),
-                      lax.bitcast_convert_type)
+        u0 = _sobol_u(ids, zvec, shift, jnp.int32(0))
+        u1 = _sobol_u(ids, zvec, shift, jnp.int32(1))
         z0 = rng.inv_normal_cdf(u0)
         z1 = rng.inv_normal_cdf(u1)
         x = l11 * z0          # x(0) = 0 under the theta(t) split
@@ -590,7 +487,6 @@ def _hw_bermudan_qmc_shift_fn(spec, a, sigma_r, n, degree, zvec, betas,
                               scale, p0_f, c_f, consts):
     """shift -> frozen-policy per-shift mean (curve Bermudan); shared by
     the single-chip and shift-sharded programs."""
-    import jax.lax as lax
 
     from mc_tpu.models.swaption import _exact_xy_coeffs
     from mc_tpu.qmc import _sobol_u
@@ -606,8 +502,7 @@ def _hw_bermudan_qmc_shift_fn(spec, a, sigma_r, n, degree, zvec, betas,
     def one_shift(shift):
         def zdim(j):
             return rng.inv_normal_cdf(
-                _sobol_u(ids, zvec, shift, jnp.int32(j),
-                         lax.bitcast_convert_type))
+                _sobol_u(ids, zvec, shift, jnp.int32(j)))
 
         x = jnp.zeros((n,), jnp.float32)
         y = jnp.zeros((n,), jnp.float32)
@@ -623,7 +518,7 @@ def _hw_bermudan_qmc_shift_fn(spec, a, sigma_r, n, degree, zvec, betas,
             x = x * e1 + l11 * z0
             ex = _hw_intrinsic(spec, i, x, p0, bmat, corr)
             if i < n_ex - 1:
-                cont = _hw_basis(x, scale, degree) @ betas[i]
+                cont = _mm(_hw_basis(x, scale, degree), betas[i])
                 take = jnp.logical_and(ex > 0.0, ex > cont)
             else:
                 take = ex > 0.0
@@ -770,12 +665,12 @@ def _fit_hw_bermudan(spec, x_grid, y_grid, degree, scale, p0_f, c_f,
         itm = ex > 0.0
         xb = _hw_basis(x_grid[i], scale, degree)
         w = jnp.where(itm, 1.0, 0.0)[:, None]
-        xtx = (xb * w).T @ xb + 1e-6 * jnp.eye(xb.shape[1],
+        xtx = _mm((xb * w).T, xb) + 1e-6 * jnp.eye(xb.shape[1],
                                                dtype=xb.dtype)
-        xty = (xb * w).T @ (cf / disc(i))
+        xty = _mm((xb * w).T, cf / disc(i))
         beta = jax.lax.stop_gradient(jnp.linalg.solve(xtx, xty))
         betas[i] = beta
-        cont = xb @ beta
+        cont = _mm(xb, beta)
         take = jnp.logical_and(itm, ex > cont)
         cf = jnp.where(take,
                        ex * p0_f[i] * jnp.exp(-y_grid[i] - c_f[i]), cf)
@@ -837,12 +732,12 @@ def _hw_swaption_sharded_impl(spec, a, sigma_r, n_paths, degree, style,
                 itm = jnp.logical_and(ex > 0.0, mask)
                 xb = _hw_basis(x_grid[i], scale, degree)
                 w = jnp.where(itm, 1.0, 0.0)[:, None]
-                xtx = (jax.lax.psum((xb * w).T @ xb, PATHS_AXIS)
+                xtx = (jax.lax.psum(_mm((xb * w).T, xb), PATHS_AXIS)
                        + 1e-6 * jnp.eye(xb.shape[1], dtype=xb.dtype))
-                xty = jax.lax.psum((xb * w).T @ (cf / disc(i)),
+                xty = jax.lax.psum(_mm((xb * w).T, cf / disc(i)),
                                    PATHS_AXIS)
                 beta = jax.lax.stop_gradient(jnp.linalg.solve(xtx, xty))
-                cont = xb @ beta
+                cont = _mm(xb, beta)
                 take = jnp.logical_and(itm, ex > cont)
                 cf = jnp.where(take,
                                ex * p0_f[i]
@@ -1268,8 +1163,8 @@ def _hw_policy_machinery(spec, a, sigma_r, degree, betas, key, scale,
             step=lambda st, zs: step_tenor(st[0], st[1], zs[0], zs[1]),
             exercise=lambda u, st: _hw_intrinsic(spec, u, st[0], p0,
                                                  bmat, corr),
-            continuation=lambda u, st: (_hw_basis(st[0], scale, degree)
-                                        @ betas[u]),
+            continuation=lambda u, st: _mm(_hw_basis(st[0], scale, degree),
+                                           betas[u]),
             cashflow=lambda u, ex, st: (ex * p0_f[u]
                                         * jnp.exp(-st[1] - c_f[u])))
 
@@ -1381,7 +1276,7 @@ def _hw_bermudan_exposure_impl(spec, a, sigma_r, n_paths, n_inner,
     for i in range(n_ex):
         ex = _hw_intrinsic(spec, i, x_grid[i], p0, bmat, corr)
         if i < n_ex - 1:
-            cont = _hw_basis(x_grid[i], scale, degree) @ betas[i]
+            cont = _mm(_hw_basis(x_grid[i], scale, degree), betas[i])
             take = jnp.logical_and(ex > 0.0, ex > cont)
         else:
             take = ex > 0.0

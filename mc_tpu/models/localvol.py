@@ -7,15 +7,15 @@ knots, per simulation step:
 
     d log S = (r - q - sigma(x, t_j)^2 / 2) dt + sigma(x, t_j) sqrt(dt) dW.
 
-TPU mapping — gather-free interpolation: a piecewise-linear function
+Device mapping — gather-free interpolation: a piecewise-linear function
 with flat extrapolation is a sum of clamped ramps,
 
     sigma(x) = v_0 + sum_k m_k * clamp(x - x_k, 0, x_{k+1} - x_k),
 
 so the per-step lookup is K-1 FMA+clamp VECTOR ops on the (tile_rows,
-128) registers — no dynamic gather (which the VPU has no fast path
-for).  Knots are shared across steps; the per-step left value v_0 and
-segment slopes m_k are read from the flat SMEM params vector by dynamic
+128) tiles — no dynamic gather (which has no fast vector path).
+Knots are shared across steps; the per-step left value v_0 and
+segment slopes m_k are read from the flat params vector by dynamic
 scalar index, like the term-structure kernel.
 
 Gates: a flat surface is EXACT log-Euler GBM (plain BS); an S-independent
@@ -30,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -42,8 +42,7 @@ from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.models.term import _unpack_term_head
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -128,7 +127,7 @@ def validate_surface(surf: LocalVolSurface, n_steps: int) -> LocalVolSurface:
         pass  # traced knots — cannot check at entry
     return s32
 
-# SMEM layout:
+# Parameter-vector layout:
 # [s0, k, t, barrier, p1, p2, q, dt, inv_n, r, sigma_ref,
 #  x_knots(K), dx(K-1), v0(n_steps), slopes(n_steps*(K-1))]
 _HDR = 11
@@ -179,7 +178,7 @@ def _make_sigma_at(params, n_steps: int, n_knots: int):
 
 
 def _localvol_leg(payoff, n_steps: int, p, s0, draw_pair, sigma_at,
-                  antithetic_sign=1.0, on_step=None):
+                  antithetic_sign=1.0):
     """Log-Euler leg with the local-vol lookup; one pair per step pair."""
     sign = jnp.float32(antithetic_sign)
     state0 = payoff.init(p, jnp.zeros_like(s0))
@@ -192,8 +191,6 @@ def _localvol_leg(payoff, n_steps: int, p, s0, draw_pair, sigma_at,
         w = w + (base_drift - 0.5 * sg * sg * p.dt) + sg * sdt * z
         s = s0 * jnp.exp(w)  # log-space: one exp rounding per S_t
         carry = (w, payoff.update(state, s, p))
-        if on_step is not None:
-            on_step(j, s, carry)
         return carry, s
 
     def pair_body(j, carry3):
@@ -206,7 +203,7 @@ def _localvol_leg(payoff, n_steps: int, p, s0, draw_pair, sigma_at,
     # the terminal pay consumes the SAME rounded s the last step fed
     # payoff.update (recomputing s0*exp(w) here lets XLA contract the
     # multiply into the payoff's subtract — 1-ulp drift vs the carried
-    # value, which would break grid-vs-fused NMC bitwise equality)
+    # value, which would break the bitwise NMC/pricer stream agreement)
     zeros = jnp.zeros_like(s0)
     (_, state), s_t = jax.lax.fori_loop(
         0, n_steps // 2, pair_body, ((zeros, state0), s0))
@@ -214,19 +211,14 @@ def _localvol_leg(payoff, n_steps: int, p, s0, draw_pair, sigma_at,
 
 
 def _localvol_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1,
-                   sigma_at, bitcast, rng_source="threefry13",
-                   hw_tag=None):
+                   sigma_at, rng_source="threefry13"):
     shape = ids.shape
 
-    if rng_source == "hw":
-        draw_pair, _ = pk.hw_model_draws(shape, k0, k1, hw_tag)
-    else:
-        rounds = 13 if rng_source == "threefry13" else 20
+    rounds = 13 if rng_source == "threefry13" else 20
 
-        def draw_pair(m):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast,
-                                   rounds=rounds)
+    def draw_pair(m):
+        c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
+        return rng.normal_pair(k0, k1, ids, c1, rounds=rounds)
 
     s0 = jnp.full(shape, p.s0, jnp.float32)
     pay = _localvol_leg(payoff, n_steps, p, s0, draw_pair, sigma_at)
@@ -237,51 +229,12 @@ def _localvol_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_localvol_kernel(payoff, cfg: pk.KernelConfig, n_knots: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_localvol_head(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        sigma_at = _make_sigma_at(params_ref, cfg.n_steps, n_knots)
-        pay = _localvol_tile(payoff, cfg.n_steps, cfg.antithetic, p, ids,
-                             valid, key_ref[0], key_ref[1], sigma_at,
-                             pltpu.bitcast, rng_source=cfg.rng_source,
-                             hw_tag=meta_ref[0] + jnp.uint32(i))
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
 def _localvol_partials(payoff, cfg, n_knots, key, params, path_offset=0,
-                       n_valid=None, engine="pallas", interpret=None):
+                       n_valid=None):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range."""
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_localvol_kernel(payoff, cfg, n_knots),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     p = _unpack_localvol_head(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
@@ -289,8 +242,7 @@ def _localvol_partials(payoff, cfg, n_knots, key, params, path_offset=0,
 
     def tile_fn(ids, valid):
         pay = _localvol_tile(payoff, cfg.n_steps, cfg.antithetic, p, ids,
-                             valid, k0, k1, sigma_at,
-                             jax.lax.bitcast_convert_type)
+                             valid, k0, k1, sigma_at)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -299,20 +251,16 @@ def _localvol_partials(payoff, cfg, n_knots, key, params, path_offset=0,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "n_knots", "engine", "antithetic",
-                     "tile_rows", "interpret", "rng_source"))
-def _price_localvol_impl(option, surf, payoff, sim, n_knots, engine,
-                         antithetic, tile_rows, interpret, key,
+    static_argnames=("payoff", "sim", "n_knots", "antithetic",
+                     "tile_rows", "rng_source"))
+def _price_localvol_impl(option, surf, payoff, sim, n_knots,
+                         antithetic, tile_rows, key,
                          rng_source="threefry13"):
-    if interpret is None:
-        interpret = use_interpret()
-    pk.check_hw_rng(rng_source, engine, antithetic)
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic,
                           rng_source=rng_source)
     params = _pack_localvol(option, surf, sim.n_steps)
-    s, sq = _localvol_partials(payoff, cfg, n_knots, key, params,
-                               engine=engine, interpret=interpret)
+    s, sq = _localvol_partials(payoff, cfg, n_knots, key, params)
     r = jnp.float32(option.r)
     t = jnp.float32(option.t)
     return summarize(finish_sum(s), finish_sum(sq),
@@ -325,13 +273,11 @@ def price_localvol(option: OptionParams = DEMO_OPTION,
                    sim: SimParams = DEMO_SIM,
                    payoff="vanilla_call",
                    *,
-                   engine: str = "pallas",
                    antithetic: bool = False,
                    tile_rows: int = 128,
                    stream: int = STREAM_OUTER,
                    key=None,
-                   rng_source: str = "threefry13",
-                   interpret: Optional[bool] = None) -> PriceResult:
+                   rng_source: str = "threefry13") -> PriceResult:
     """Monte Carlo price under a local-volatility surface sigma(S, t).
 
     ``surf.vols`` must have ``sim.n_steps`` rows (build with
@@ -350,8 +296,8 @@ def price_localvol(option: OptionParams = DEMO_OPTION,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0x10CA),
                           jnp.uint32)
     return _price_localvol_impl(option.as_f32(), s32, po,
-                                sim.replace(seed=0), s32.n_knots, engine,
-                                antithetic, tile_rows, interpret, key,
+                                sim.replace(seed=0), s32.n_knots,
+                                antithetic, tile_rows, key,
                                 rng_source=rng_source)
 
 
@@ -362,72 +308,3 @@ def price_localvol(option: OptionParams = DEMO_OPTION,
 # ---------------------------------------------------------------------------
 
 
-def _make_localvol_traj_kernel(payoff, cfg: pk.KernelConfig,
-                               n_knots: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert payoff.n_state <= 1, "trajectory kernel stores one state array"
-
-    def kernel(key_ref, params_ref, meta_ref, s_out, st_out, pay_sum,
-               pay_sq, comp_ref):
-        p = _unpack_localvol_head(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        k0, k1 = key_ref[0], key_ref[1]
-
-        def draw_pair(m):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=pltpu.bitcast)
-
-        def persist(j, s, carry):
-            _, state = carry
-            s_out[j] = s
-            st_out[j] = state[0] if payoff.n_state else jnp.zeros_like(s)
-
-        sigma_at = _make_sigma_at(params_ref, cfg.n_steps, n_knots)
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        pay = _localvol_leg(payoff, cfg.n_steps, p, s0, draw_pair,
-                            sigma_at, on_step=persist)
-        pay = jnp.where(valid, pay, 0.0)
-        pk._accumulate_moments((pay_sum, pay_sq), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "n_knots",
-                                             "interpret"))
-def localvol_trajectories_kernel(payoff, cfg: pk.KernelConfig,
-                                 n_knots: int, key, params, n_valid=None,
-                                 interpret=None):
-    """(S, state) step-major grids + terminal payoff partials."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = use_interpret()
-    rows = cfg.n_tiles * cfg.tile_rows
-    grid_spec = pl.BlockSpec((cfg.n_steps, cfg.tile_rows, LANES),
-                             lambda i: (0, i, 0), memory_space=pltpu.VMEM)
-    part_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-    bound = (jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    g = jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32)
-    s = jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32)
-    return pl.pallas_call(
-        _make_localvol_traj_kernel(payoff, cfg, n_knots),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[grid_spec, grid_spec, part_spec, part_spec],
-        out_shape=[g, g, s, s],
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params,
-      jnp.stack([jnp.uint32(0), bound]))

@@ -13,7 +13,7 @@ conditions to a Black-Scholes world), used by the tests the same way the
 reference validates its GBM pricer against the closed form
 (``/root/reference/hello.cu:43-45``).
 
-TPU mapping.  The per-step log-increment is *exact in distribution*:
+Device mapping.  The per-step log-increment is *exact in distribution*:
 
     dlog S = (r - q - lam*kappa - sigma^2/2) dt + sigma sqrt(dt) z
              + N mu_j + sigma_j sqrt(N) e,      N ~ Poisson(lam dt)
@@ -33,7 +33,7 @@ import dataclasses
 import functools
 import math
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -43,8 +43,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -156,7 +155,7 @@ def _jump_increment(p, n, e):
     return n * p.mu_j + p.sigma_j * jnp.sqrt(n) * e
 
 
-def _merton_draw3(k0, k1, ids, m, bitcast, rounds=rng.DEFAULT_ROUNDS):
+def _merton_draw3(k0, k1, ids, m, rounds=rng.DEFAULT_ROUNDS):
     """Draws for the step pair (2m, 2m+1): three threefry calls.
 
     Counter layout: c1 = 3m (diffusion normals), 3m+1 (jump-size normals),
@@ -164,24 +163,15 @@ def _merton_draw3(k0, k1, ids, m, bitcast, rounds=rng.DEFAULT_ROUNDS):
     """
     base = jnp.asarray(3 * m, jnp.uint32)
     zero = jnp.full(ids.shape, 0, jnp.uint32)
-    z0, z1 = rng.normal_pair(k0, k1, ids, zero + base, bitcast=bitcast,
+    z0, z1 = rng.normal_pair(k0, k1, ids, zero + base,
                              rounds=rounds)
     e0, e1 = rng.normal_pair(k0, k1, ids, zero + base + jnp.uint32(1),
-                             bitcast=bitcast, rounds=rounds)
+                             rounds=rounds)
     b0, b1 = rng.threefry2x32(k0, k1, ids, zero + base + jnp.uint32(2),
                               rounds=rounds)
-    u0 = rng.bits_to_unit(b0, bitcast)
-    u1 = rng.bits_to_unit(b1, bitcast)
+    u0 = rng.bits_to_unit(b0)
+    u1 = rng.bits_to_unit(b1)
     return z0, z1, e0, e1, u0, u1
-
-
-def _merton_draw3_hw(draw_pair, draw_unit):
-    """hw-PRNG form of `_merton_draw3`: fresh bits per call (stateful)."""
-    def draw3(m):
-        z0, z1 = draw_pair(m)
-        e0, e1 = draw_pair(m)
-        return z0, z1, e0, e1, draw_unit(m), draw_unit(m)
-    return draw3
 
 
 def _merton_leg(payoff, n_steps: int, kmax: int, p, s0, draw3,
@@ -229,14 +219,9 @@ def _merton_terminal(payoff, kmax: int, p, s0, draw3, antithetic_sign=1.0):
 
 
 def _merton_tile(payoff, method: str, n_steps: int, kmax: int, antithetic,
-                 p, ids, valid, k0, k1, bitcast, rng_source="threefry13",
-                 hw_tag=None):
-    if rng_source == "hw":
-        draw3 = _merton_draw3_hw(*pk.hw_model_draws(ids.shape, k0, k1,
-                                                    hw_tag))
-    else:
-        rounds = 13 if rng_source == "threefry13" else 20
-        draw3 = lambda m: _merton_draw3(k0, k1, ids, m, bitcast, rounds)
+                 p, ids, valid, k0, k1, rng_source="threefry13"):
+    rounds = 13 if rng_source == "threefry13" else 20
+    draw3 = lambda m: _merton_draw3(k0, k1, ids, m, rounds)
     s0 = jnp.full(ids.shape, p.s0, jnp.float32)
     if method == "terminal":
         pay = _merton_terminal(payoff, kmax, p, s0, draw3)
@@ -251,59 +236,19 @@ def _merton_tile(payoff, method: str, n_steps: int, kmax: int, antithetic,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_merton_kernel(payoff, cfg: pk.KernelConfig, kmax: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_merton(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _merton_tile(payoff, cfg.method, cfg.n_steps, kmax,
-                           cfg.antithetic, p, ids, valid, key_ref[0],
-                           key_ref[1], pltpu.bitcast,
-                           rng_source=cfg.rng_source,
-                           hw_tag=meta_ref[0] + jnp.uint32(i))
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
 def _merton_partials(payoff, cfg, kmax, key, params, path_offset=0,
-                     n_valid=None, engine="pallas", interpret=None):
+                     n_valid=None):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range."""
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_merton_kernel(payoff, cfg, kmax),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     p = _unpack_merton(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids, valid):
         pay = _merton_tile(payoff, cfg.method, cfg.n_steps, kmax,
-                           cfg.antithetic, p, ids, valid, k0, k1,
-                           jax.lax.bitcast_convert_type)
+                           cfg.antithetic, p, ids, valid, k0, k1)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -312,116 +257,21 @@ def _merton_partials(payoff, cfg, kmax, key, params, path_offset=0,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "method", "kmax", "engine",
-                     "antithetic", "tile_rows", "interpret", "rng_source"))
-def _price_merton_impl(option, dyn, payoff, sim, method, kmax, engine,
-                       antithetic, tile_rows, interpret, key,
+    static_argnames=("payoff", "sim", "method", "kmax",
+                     "antithetic", "tile_rows", "rng_source"))
+def _price_merton_impl(option, dyn, payoff, sim, method, kmax,
+                       antithetic, tile_rows, key,
                        rng_source="threefry13"):
-    if interpret is None:
-        interpret = use_interpret()
-    pk.check_hw_rng(rng_source, engine, antithetic)
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic,
                           method=method, rng_source=rng_source)
     params = _pack_merton(option, dyn, sim.n_steps)
-    s, sq = _merton_partials(payoff, cfg, kmax, key, params,
-                             engine=engine, interpret=interpret)
+    s, sq = _merton_partials(payoff, cfg, kmax, key, params)
     r = jnp.float32(option.r)
     t = jnp.float32(option.t)
     return summarize(finish_sum(s), finish_sum(sq),
                      jnp.asarray(sim.n_paths, jnp.float32),
                      jnp.exp(-r * t))
-
-
-def _make_merton_traj_kernel(payoff, cfg: pk.KernelConfig, kmax: int):
-    """Trajectory materialization under jumps: persist (S_t, state_t) at
-    every step (the LSMC/exposure feed, like the GBM kernel in
-    ops/path_kernels and the Heston variant in models/heston)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert payoff.n_state <= 1, "trajectory kernel stores one state array"
-
-    def kernel(key_ref, params_ref, meta_ref, s_out, st_out, pay_sum,
-               pay_sq, comp_ref):
-        p = _unpack_merton(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        k0, k1 = key_ref[0], key_ref[1]
-        draw3 = lambda m: _merton_draw3(k0, k1, ids, m, pltpu.bitcast)
-
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        state0 = payoff.init(p, jnp.zeros_like(s0))
-
-        def persist(j, s, state):
-            s_out[j] = s
-            st_out[j] = state[0] if payoff.n_state else jnp.zeros_like(s)
-
-        def one_step(w, state, z, e, u):
-            n = _poisson_inv_cdf(u, p.lam_dt, kmax)
-            w = w + p.drift_dt + p.vol_dt * z + _jump_increment(p, n, e)
-            s = s0 * jnp.exp(w)
-            return w, s, payoff.update(state, s, p)
-
-        def body(m, carry):
-            w, s, state = carry
-            z0, z1, e0, e1, u0, u1 = draw3(m)
-            w, s, state = one_step(w, state, z0, e0, u0)
-            persist(2 * m, s, state)
-            w, s, state = one_step(w, state, z1, e1, u1)
-            persist(2 * m + 1, s, state)
-            return (w, s, state)
-
-        zero = jnp.zeros_like(s0)
-        w, s_t, state = jax.lax.fori_loop(0, cfg.n_steps // 2, body,
-                                          (zero, s0, state0))
-        pay = jnp.where(valid, payoff.terminal(state, s_t, p), 0.0)
-        pk._accumulate_moments((pay_sum, pay_sq), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "kmax",
-                                             "interpret"))
-def merton_trajectories_kernel(payoff, cfg: pk.KernelConfig, kmax: int,
-                               key, params, path_offset=0, n_valid=None,
-                               interpret=None):
-    """(s_grid, state_grid, pay_partials, pay_sq): step-major HBM grids
-    under Merton jump-diffusion."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = use_interpret()
-    assert cfg.n_steps % 2 == 0, "merton trajectory kernel needs even steps"
-    rows = cfg.n_tiles * cfg.tile_rows
-    grid_spec = pl.BlockSpec((cfg.n_steps, cfg.tile_rows, LANES),
-                             lambda i: (0, i, 0), memory_space=pltpu.VMEM)
-    part_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-    offset = jnp.asarray(path_offset, jnp.uint32)
-    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    return pl.pallas_call(
-        _make_merton_traj_kernel(payoff, cfg, kmax),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[grid_spec, grid_spec, part_spec, part_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
 
 
 def price_merton(option: OptionParams = DEMO_OPTION,
@@ -430,13 +280,11 @@ def price_merton(option: OptionParams = DEMO_OPTION,
                  payoff="vanilla_call",
                  *,
                  method: str = "euler",
-                 engine: str = "pallas",
                  antithetic: bool = False,
                  tile_rows: int = 128,
                  stream: int = STREAM_OUTER,
                  key=None,
-                 rng_source: str = "threefry13",
-                 interpret: Optional[bool] = None) -> PriceResult:
+                 rng_source: str = "threefry13") -> PriceResult:
     """Monte Carlo price under Merton jump-diffusion.
 
     ``method="terminal"`` draws S_T exactly in one shot (terminal-only
@@ -462,8 +310,8 @@ def price_merton(option: OptionParams = DEMO_OPTION,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0x3E44),
                           jnp.uint32)
     return _price_merton_impl(option.as_f32(), dyn.as_f32(), po,
-                              sim.replace(seed=0), method, kmax, engine,
-                              antithetic, tile_rows, interpret, key,
+                              sim.replace(seed=0), method, kmax,
+                              antithetic, tile_rows, key,
                               rng_source=rng_source)
 
 

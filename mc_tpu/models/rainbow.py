@@ -8,19 +8,18 @@ sharp closed-form gates: Margrabe (1978) for the exchange and Stulz
 (1982) via the bivariate normal CDF for two-asset min/max contracts
 (`oracle.margrabe`, `oracle.stulz_*`).
 
-TPU mapping: rainbow payoffs are terminal-only, so each path is ONE exact
+Device mapping: rainbow payoffs are terminal-only, so each path is ONE exact
 correlated GBM draw over the full horizon (the reference's `terminal`
 trick, trajectories.cuh:74-75, lifted to d assets): ceil(d/2) threefry
 pairs -> d iid normals -> unrolled Cholesky mix -> d exps, all on
-(tile_rows, 128) vregs; min/max folds are d-1 VPU maximum ops.  Reuses
-the basket SMEM parameter packing (`_pack_basket` with n_steps=1, so the
+(tile_rows, 128) tiles; min/max folds are d-1 vector maximum ops.  Reuses
+the basket parameter packing (`_pack_basket` with n_steps=1, so the
 packed drifts cover the full T and sqrt_dt = sqrt(T)).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +32,7 @@ from mc_tpu.models.basket import (BasketDynamics, DEMO_BASKET,
                                   _unpack_basket)
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.reduce import finish_sum
 
 __all__ = ["price_rainbow", "RAINBOW_PAYOFFS", "BasketDynamics",
@@ -87,20 +85,16 @@ def _rainbow_leg(pay_fn, d: int, p, draw_pair, antithetic_sign=1.0):
     return pay_fn(ss, p)
 
 
-def _rainbow_tile(name, d, antithetic, p, ids, valid, k0, k1, bitcast,
-                  rng_source="threefry13", hw_tag=None):
+def _rainbow_tile(name, d, antithetic, p, ids, valid, k0, k1,
+                  rng_source="threefry13"):
     pay_fn, _ = RAINBOW_PAYOFFS[name]
     shape = ids.shape
 
-    if rng_source == "hw":
-        draw_pair, _ = pk.hw_model_draws(shape, k0, k1, hw_tag)
-    else:
-        rounds = 13 if rng_source == "threefry13" else 20
+    rounds = 13 if rng_source == "threefry13" else 20
 
-        def draw_pair(m):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast,
-                                   rounds=rounds)
+    def draw_pair(m):
+        c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
+        return rng.normal_pair(k0, k1, ids, c1, rounds=rounds)
 
     pay = _rainbow_leg(pay_fn, d, p, draw_pair)
     if antithetic:
@@ -109,60 +103,22 @@ def _rainbow_tile(name, d, antithetic, p, ids, valid, k0, k1, bitcast,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_rainbow_kernel(name, cfg: pk.KernelConfig, d: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_basket(params_ref, d)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _rainbow_tile(name, d, cfg.antithetic, p, ids, valid,
-                            key_ref[0], key_ref[1], pltpu.bitcast,
-                            rng_source=cfg.rng_source,
-                            hw_tag=meta_ref[0] + jnp.uint32(i))
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
 def _rainbow_partials(name, cfg, d, key, params, path_offset=0,
-                      n_valid=None, engine="pallas", interpret=None):
+                      n_valid=None):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range.
 
-    ``params`` is the packed basket SMEM vector (n_steps=1 namespace).
+    ``params`` is the packed basket parameter vector (n_steps=1 namespace).
     """
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_rainbow_kernel(name, cfg, d),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     ns = _unpack_basket(params, d)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids, valid):
         pay = _rainbow_tile(name, d, cfg.antithetic, ns, ids, valid,
-                            k0, k1, jax.lax.bitcast_convert_type)
+                            k0, k1)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -171,20 +127,16 @@ def _rainbow_partials(name, cfg, d, key, params, path_offset=0,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("name", "sim", "d", "engine", "antithetic",
-                     "tile_rows", "interpret", "rng_source"))
-def _price_rainbow_impl(option, basket, name, sim, d, engine, antithetic,
-                        tile_rows, interpret, key,
+    static_argnames=("name", "sim", "d", "antithetic",
+                     "tile_rows", "rng_source"))
+def _price_rainbow_impl(option, basket, name, sim, d, antithetic,
+                        tile_rows, key,
                         rng_source="threefry13"):
-    if interpret is None:
-        interpret = use_interpret()
-    pk.check_hw_rng(rng_source, engine, antithetic)
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=1,
                           tile_rows=tile_rows, antithetic=antithetic,
                           rng_source=rng_source)
     params = _pack_basket(_basket_namespace(option, basket, 1), d)
-    s, sq = _rainbow_partials(name, cfg, d, key, params, engine=engine,
-                              interpret=interpret)
+    s, sq = _rainbow_partials(name, cfg, d, key, params)
     r = jnp.float32(option.r)
     t = jnp.float32(option.t)
     return summarize(finish_sum(s), finish_sum(sq),
@@ -197,13 +149,11 @@ def price_rainbow(option: OptionParams = DEMO_OPTION,
                   sim: SimParams = DEMO_SIM,
                   payoff: str = "call_on_max",
                   *,
-                  engine: str = "pallas",
                   antithetic: bool = False,
                   tile_rows: int = 128,
                   stream: int = STREAM_OUTER,
                   key=None,
-                  rng_source: str = "threefry13",
-                  interpret: Optional[bool] = None) -> PriceResult:
+                  rng_source: str = "threefry13") -> PriceResult:
     """Monte Carlo price of a rainbow option on correlated GBM assets.
 
     ``payoff``: one of `RAINBOW_PAYOFFS` — contracts on the terminal
@@ -227,6 +177,6 @@ def price_rainbow(option: OptionParams = DEMO_OPTION,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0xBE0F),
                           jnp.uint32)
     return _price_rainbow_impl(option.as_f32(), b32, payoff,
-                               sim.replace(seed=0), b32.d, engine,
-                               antithetic, tile_rows, interpret, key,
+                               sim.replace(seed=0), b32.d,
+                               antithetic, tile_rows, key,
                                rng_source=rng_source)

@@ -10,7 +10,7 @@ backbone, and a different oracle style: Hagan's asymptotic IMPLIED-VOL
 expansion rather than an exact transform.  Tests invert MC prices back to
 implied vols (`oracle.bs_implied_vol`) and compare smiles.
 
-TPU mapping: same fused tile pattern as Heston (two normals per step from
+Device mapping: same fused tile pattern as Heston (two normals per step from
 one threefry call).  The vol factor is exact in distribution
 (sigma_{t+1} = sigma_t exp(nu sqrt(dt) z - nu^2 dt / 2)); the forward
 steps in LOG space with the local lognormal vol sigma_t F_t^{beta-1}
@@ -25,7 +25,7 @@ import dataclasses
 import functools
 import math
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +35,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -129,19 +128,15 @@ def _sabr_leg(payoff, n_steps: int, p, f0, draw_pair, antithetic_sign=1.0):
     return payoff.terminal(state, jnp.exp(logf), p)
 
 
-def _sabr_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1, bitcast,
-               rng_source="threefry13", hw_tag=None):
+def _sabr_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1,
+               rng_source="threefry13"):
     shape = ids.shape
 
-    if rng_source == "hw":
-        draw_pair, _ = pk.hw_model_draws(shape, k0, k1, hw_tag)
-    else:
-        rounds = 13 if rng_source == "threefry13" else 20
+    rounds = 13 if rng_source == "threefry13" else 20
 
-        def draw_pair(m):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast,
-                                   rounds=rounds)
+    def draw_pair(m):
+        c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
+        return rng.normal_pair(k0, k1, ids, c1, rounds=rounds)
 
     f0 = jnp.full(shape, 1.0, jnp.float32) * p.f0
     pay = _sabr_leg(payoff, n_steps, p, f0, draw_pair)
@@ -151,57 +146,18 @@ def _sabr_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1, bitcast,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_sabr_kernel(payoff, cfg: pk.KernelConfig):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_sabr(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _sabr_tile(payoff, cfg.n_steps, cfg.antithetic, p, ids, valid,
-                         key_ref[0], key_ref[1], pltpu.bitcast,
-                         rng_source=cfg.rng_source,
-                         hw_tag=meta_ref[0] + jnp.uint32(i))
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-def _sabr_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
-                   engine="pallas", interpret=None):
+def _sabr_partials(payoff, cfg, key, params, path_offset=0, n_valid=None):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range."""
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_sabr_kernel(payoff, cfg),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     p = _unpack_sabr(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids, valid):
         pay = _sabr_tile(payoff, cfg.n_steps, cfg.antithetic, p, ids,
-                         valid, k0, k1, jax.lax.bitcast_convert_type)
+                         valid, k0, k1)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -210,19 +166,15 @@ def _sabr_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "engine", "antithetic", "tile_rows",
-                     "interpret", "rng_source"))
-def _price_sabr_impl(option, dyn, payoff, sim, engine, antithetic,
-                     tile_rows, interpret, key, rng_source="threefry13"):
-    if interpret is None:
-        interpret = use_interpret()
-    pk.check_hw_rng(rng_source, engine, antithetic)
+    static_argnames=("payoff", "sim", "antithetic", "tile_rows",
+                     "rng_source"))
+def _price_sabr_impl(option, dyn, payoff, sim, antithetic,
+                     tile_rows, key, rng_source="threefry13"):
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic,
                           rng_source=rng_source)
     params = _pack_sabr(option, dyn, sim.n_steps)
-    s, sq = _sabr_partials(payoff, cfg, key, params, engine=engine,
-                           interpret=interpret)
+    s, sq = _sabr_partials(payoff, cfg, key, params)
     r = jnp.float32(option.r)
     t = jnp.float32(option.t)
     return summarize(finish_sum(s), finish_sum(sq),
@@ -235,13 +187,11 @@ def price_sabr(option: OptionParams = DEMO_OPTION,
                sim: SimParams = DEMO_SIM,
                payoff="vanilla_call",
                *,
-               engine: str = "pallas",
                antithetic: bool = False,
                tile_rows: int = 128,
                stream: int = STREAM_OUTER,
                key=None,
-               rng_source: str = "threefry13",
-               interpret: Optional[bool] = None) -> PriceResult:
+               rng_source: str = "threefry13") -> PriceResult:
     """Monte Carlo price under SABR (payoffs evaluated on the FORWARD
     path; European payoffs discounted at e^{-rT})."""
     po = get_payoff(payoff)
@@ -250,8 +200,8 @@ def price_sabr(option: OptionParams = DEMO_OPTION,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0x5AB4),
                           jnp.uint32)
     return _price_sabr_impl(option.as_f32(), dyn.as_f32(), po,
-                            sim.replace(seed=0), engine, antithetic,
-                            tile_rows, interpret, key,
+                            sim.replace(seed=0), antithetic,
+                            tile_rows, key,
                             rng_source=rng_source)
 
 

@@ -2,7 +2,7 @@
 
 The rates-native product family on the framework's stochastic-rate
 machinery (`models/vasicek.py` holds the equity-hybrid engine; here the
-rate IS the underlying).  TPU-first design point: the Vasicek (x, y) =
+rate IS the underlying).  Design point: the Vasicek (x, y) =
 (r - b, int r du) pair has an EXACT joint Gaussian transition over ANY
 horizon, so the simulation grid is the COUPON grid — one exact step per
 exercise date, no Euler substeps, no discretization bias anywhere
@@ -43,6 +43,12 @@ __all__ = ["SwaptionSpec", "price_swaption", "price_bermudan_swaption",
            "DEMO_SWAPTION"]
 
 
+def _mm(a, b):
+    """float32 product at full precision: a GPU would otherwise run it in
+    TF32, which keeps about three decimal digits."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 @dataclasses.dataclass(frozen=True)
 class SwaptionSpec:
     """Unit-notional swap: fixed ``k_rate`` vs float, payments at
@@ -73,7 +79,7 @@ def _exact_xy_coeffs(a, sigma_r, dt):
     size ``dt`` — the 2x2 rates block of models/vasicek._pack_vasicek,
     in `vasicek.ou_chol2`'s cancellation-free closed form (the textbook
     c11 - l21^2 discriminant loses (a dt)^-2 relative digits in f32 and
-    went NaN on the TPU backend — see `vasicek.ou_gap`)."""
+    went NaN on an accelerator backend — see `vasicek.ou_gap`)."""
     from mc_tpu.models.vasicek import ou_chol2
     return ou_chol2(a, sigma_r, dt)
 
@@ -149,125 +155,20 @@ def _european_impl(spec, a, b, sigma_r, r0, n_paths, key,
     return summarize(jnp.sum(pay), jnp.sum(pay * pay), n, 1.0)
 
 
-# ---------------------------------------------------------------------------
-# Fused-engine European swaption (round 4): the `hullwhite` fused-pair
-# construction on the Vasicek affine bonds — one Mosaic kernel (threefry
-# pair, exact (r, int r) draw, affine bond loop, pathwise discount, Kahan
-# moment slabs) + its bitwise XLA dual; same stream and per-path op order
-# as `_european_impl`, agreement to summation order.
-#
-# NOTE (round 5, measured on-chip): "bitwise dual" binds the interpret
-# and XLA paths (same trace).  The COMPILED Mosaic kernel is held to
-# <= ~4 ulp of the dual instead: Mosaic's fma contraction inside the
-# lowered transcendentals is context-dependent (with intermediates
-# materialized the compiled kernel matches bit-for-bit; fused, ~15% of
-# paths drift 1 ulp) — tests_tpu/test_rates_device.py gates the bound.
-# ---------------------------------------------------------------------------
-
-_VA_SWPT_HEADER = 10  # x0, e1, bigB, l11, l21, l22, b*dt, K*tau, sign, b
-
-
-def _pack_va_swpt(spec, a, b, sigma_r, r0):
-    """Flat f32 vector: OU-step header + per-coupon (logA_j, B_j)
-    affine-bond tables — traced, so rate/vol bumps re-price with zero
-    recompiles."""
-    n = spec.n_payments
-    e1, big_b, l11, l21, l22 = _exact_xy_coeffs(
-        a, sigma_r, jnp.float32(spec.expiry))
-    head = jnp.stack([
-        jnp.asarray(r0 - b, jnp.float32), jnp.asarray(e1, jnp.float32),
-        jnp.asarray(big_b, jnp.float32), jnp.asarray(l11, jnp.float32),
-        jnp.asarray(l21, jnp.float32), jnp.asarray(l22, jnp.float32),
-        b * jnp.float32(spec.expiry),
-        jnp.float32(spec.k_rate) * jnp.float32(spec.tenor),
-        jnp.float32(1.0 if spec.payer else -1.0),
-        jnp.asarray(b, jnp.float32)])
-    tau = jnp.float32(spec.tenor)
-    logas, bts = [], []
-    for j in range(1, n + 1):
-        s = tau * j
-        bt = -jnp.expm1(-a * s) / a
-        loga = ((b - sigma_r * sigma_r / (2.0 * a * a)) * (bt - s)
-                - sigma_r * sigma_r * bt * bt / (4.0 * a))
-        logas.append(jnp.asarray(loga, jnp.float32))
-        bts.append(jnp.asarray(bt, jnp.float32))
-    return jnp.concatenate([head, jnp.stack(logas), jnp.stack(bts)])
-
-
-def _va_swpt_tile(n_pay, pv, ids, valid, k0, k1, bitcast):
-    """Per-tile payoff, op-for-op `_european_impl` at payoff_date=0
-    (same threefry pair (id, 0), same step/bond/discount order)."""
-    shape = ids.shape
-    c1 = jnp.full(shape, 0, jnp.uint32)
-    z0, z1 = rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast)
-    x0 = jnp.full(shape, 0.0, jnp.float32) + pv[0]
-    x = x0 * pv[1] + pv[3] * z0
-    y = (jnp.zeros(shape, jnp.float32) + pv[6] + x0 * pv[2]
-         + (pv[4] * z0 + pv[5] * z1))
-    r = x + pv[9]
-    h = _VA_SWPT_HEADER
-    fixed = jnp.zeros(shape, jnp.float32)
-    p_last = None
-    for j in range(n_pay):
-        p_j = jnp.exp(pv[h + j] - pv[h + n_pay + j] * r)
-        fixed = fixed + p_j
-        if j == n_pay - 1:
-            p_last = p_j
-    swap = (1.0 - p_last - pv[7] * fixed) * pv[8]
-    pay = jnp.maximum(swap, 0.0) * jnp.exp(-y)
-    return jnp.where(valid, pay, 0.0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("n_pay", "n_paths", "engine",
-                                    "tile_rows", "interpret"))
-def _va_european_fused_impl(n_pay, n_paths, engine, tile_rows,
-                            interpret, key, pv):
-    from mc_tpu.ops import path_kernels as pk
-    from mc_tpu.ops._pallas import use_interpret
-    from mc_tpu.ops.reduce import finish_sum
-    if interpret is None:
-        interpret = use_interpret()
-    from mc_tpu.ops._pallas import fused_moment_partials
-    cfg = pk.KernelConfig(n_paths=n_paths, n_steps=1,
-                          tile_rows=tile_rows)
-    s, sq = fused_moment_partials(
-        functools.partial(_va_swpt_tile, n_pay), cfg, key, pv,
-        engine=engine, interpret=interpret)
-    return summarize(finish_sum(s), finish_sum(sq),
-                     jnp.asarray(n_paths, jnp.float32), jnp.float32(1.0))
-
-
 def price_swaption(spec: SwaptionSpec = DEMO_SWAPTION,
                    dyn: VasicekDynamics = DEMO_VASICEK,
                    sim: SimParams = SimParams(n_paths=1 << 20, n_steps=1),
                    *,
                    r0: float = 0.05,
-                   engine: Optional[str] = None,
-                   tile_rows: int = 128,
-                   interpret: Optional[bool] = None,
                    seed: Optional[int] = None,
                    stream: int = STREAM_OUTER) -> PriceResult:
     """European payer/receiver swaption: ONE exact draw of (r, int r)
     at expiry, pathwise discounting, swap bonds in closed affine form.
-    Oracle gate: `oracle.vasicek_swaption` (Jamshidian).
-
-    ``engine``: None (default) — the classic single-fusion XLA program;
-    "pallas" — ONE fused Mosaic kernel; "xla" — its bitwise dual (same
-    tile fold, same threefry stream; see `price_hw_swaption` for the
-    measurement contract)."""
+    Oracle gate: `oracle.vasicek_swaption` (Jamshidian)."""
     spec = spec.validate()
     d32 = dyn.as_f32()
     seed = sim.seed if seed is None else seed
     key = jnp.asarray(rng.derive_key(seed, stream, 0x5A97), jnp.uint32)
-    if engine is not None:
-        if engine not in ("pallas", "xla"):
-            raise ValueError(f"engine must be pallas|xla, got {engine!r}")
-        pv = _pack_va_swpt(spec, jnp.float32(d32.a), jnp.float32(d32.b),
-                           jnp.float32(d32.sigma_r), jnp.float32(r0))
-        return _va_european_fused_impl(spec.n_payments, sim.n_paths,
-                                       engine, tile_rows, interpret,
-                                       key, pv)
     return _european_impl(spec, jnp.float32(d32.a), jnp.float32(d32.b),
                           jnp.float32(d32.sigma_r), jnp.float32(r0),
                           sim.n_paths, key)
@@ -296,13 +197,14 @@ def _fit_bermudan(spec, a, b, sigma_r, r_grid, y_grid, degree):
         itm = ex > 0.0
         x = _rate_basis(r_grid[i], b, degree)
         w = jnp.where(itm, 1.0, 0.0)[:, None]
-        xtx = (x * w).T @ x + 1e-6 * jnp.eye(x.shape[1], dtype=x.dtype)
-        xty = (x * w).T @ (cf * jnp.exp(y_grid[i]))
+        xtx = (_mm((x * w).T, x)
+               + 1e-6 * jnp.eye(x.shape[1], dtype=x.dtype))
+        xty = _mm((x * w).T, cf * jnp.exp(y_grid[i]))
         # frozen-policy convention: sensitivities (swaption_greeks) hold
         # the fitted policy fixed — envelope theorem; forward unchanged
         beta = jax.lax.stop_gradient(jnp.linalg.solve(xtx, xty))
         betas[i] = beta
-        cont = x @ beta
+        cont = _mm(x, beta)
         take = jnp.logical_and(itm, ex > cont)
         cf = jnp.where(take, ex * jnp.exp(-y_grid[i]), cf)
     return cf, betas
@@ -430,11 +332,11 @@ def _swaption_sharded_impl(spec, a, b, sigma_r, r0, n_paths, degree,
                 itm = jnp.logical_and(ex > 0.0, mask)
                 x = _rate_basis(r_grid[i], b, degree)
                 w = jnp.where(itm, 1.0, 0.0)[:, None]
-                xtx = jax.lax.psum((x * w).T @ x, PATHS_AXIS) + eye
-                xty = jax.lax.psum((x * w).T @ (cf * jnp.exp(y_grid[i])),
+                xtx = jax.lax.psum(_mm((x * w).T, x), PATHS_AXIS) + eye
+                xty = jax.lax.psum(_mm((x * w).T, cf * jnp.exp(y_grid[i])),
                                    PATHS_AXIS)
                 beta = jax.lax.stop_gradient(jnp.linalg.solve(xtx, xty))
-                cont = x @ beta
+                cont = _mm(x, beta)
                 take = jnp.logical_and(itm, ex > cont)
                 cf = jnp.where(take, ex * jnp.exp(-y_grid[i]), cf)
         cf = jnp.where(mask, cf, 0.0)
@@ -615,8 +517,8 @@ def _policy_machinery(spec, a, b, sigma_r, degree, betas, key):
             step=lambda st, zs: step_tenor(st[0], st[1], zs[0], zs[1]),
             exercise=lambda u, st: _swap_intrinsic(spec, a, b, sigma_r,
                                                    st[0], u),
-            continuation=lambda u, st: (_rate_basis(st[0], b, degree)
-                                        @ betas[u]),
+            continuation=lambda u, st: _mm(_rate_basis(st[0], b, degree),
+                                           betas[u]),
             cashflow=lambda u, ex, st: ex * jnp.exp(-st[1]))
 
     return step_tenor, draws, policy_value
@@ -645,7 +547,7 @@ def _bermudan_exposure_impl(spec, a, b, sigma_r, r0, n_paths, n_inner,
     for i in range(n_ex):
         ex = _swap_intrinsic(spec, a, b, sigma_r, r_grid[i], i)
         if i < n_ex - 1:
-            cont = _rate_basis(r_grid[i], b, degree) @ betas[i]
+            cont = _mm(_rate_basis(r_grid[i], b, degree), betas[i])
             take = jnp.logical_and(ex > 0.0, ex > cont)
         else:
             take = ex > 0.0
@@ -772,7 +674,6 @@ def swap_cva_greeks(spec: SwaptionSpec = DEMO_SWAPTION,
 def _swaption_qmc_shift_fn(spec, a, b, sigma_r, r0, n, zvec):
     """shift -> per-shift sample mean for the 2-dim Vasicek Sobol net;
     shared by the single-chip and shift-sharded QMC programs."""
-    import jax.lax as lax
 
     from mc_tpu.qmc import _sobol_u
 
@@ -782,10 +683,8 @@ def _swaption_qmc_shift_fn(spec, a, b, sigma_r, r0, n, zvec):
     x0 = r0 - b
 
     def one_shift(shift):
-        u0 = _sobol_u(ids, zvec, shift, jnp.int32(0),
-                      lax.bitcast_convert_type)
-        u1 = _sobol_u(ids, zvec, shift, jnp.int32(1),
-                      lax.bitcast_convert_type)
+        u0 = _sobol_u(ids, zvec, shift, jnp.int32(0))
+        u1 = _sobol_u(ids, zvec, shift, jnp.int32(1))
         z0 = rng.inv_normal_cdf(u0)
         z1 = rng.inv_normal_cdf(u1)
         r = b + x0 * e1 + l11 * z0
@@ -922,7 +821,6 @@ def _bermudan_qmc_shift_fn(spec, a, b, sigma_r, r0, n, degree, zvec,
                            betas):
     """shift -> frozen-policy per-shift mean on the full date-grid
     Sobol net; shared by the single-chip and shift-sharded programs."""
-    import jax.lax as lax
 
     from mc_tpu.qmc import _sobol_u
 
@@ -938,8 +836,7 @@ def _bermudan_qmc_shift_fn(spec, a, b, sigma_r, r0, n, degree, zvec,
     def one_shift(shift):
         def zdim(j):
             return rng.inv_normal_cdf(
-                _sobol_u(ids, zvec, shift, jnp.int32(j),
-                         lax.bitcast_convert_type))
+                _sobol_u(ids, zvec, shift, jnp.int32(j)))
 
         x = jnp.zeros((n,), jnp.float32) + (r0 - b)
         y = jnp.zeros((n,), jnp.float32)
@@ -956,7 +853,7 @@ def _bermudan_qmc_shift_fn(spec, a, b, sigma_r, r0, n, degree, zvec,
             x = x * e1 + l11 * z0
             ex = _swap_intrinsic(spec, a, b, sigma_r, r, i)
             if i < n_ex - 1:
-                cont = _rate_basis(r, b, degree) @ betas[i]
+                cont = _mm(_rate_basis(r, b, degree), betas[i])
                 take = jnp.logical_and(ex > 0.0, ex > cont)
             else:
                 take = ex > 0.0

@@ -14,10 +14,10 @@ mean(sigma_j^2) — so every European contract has an EXACT closed form
 gate.  Path-dependent payoffs see the real curve (an Asian under a vol
 term structure actually differs from its flat-vol twin).
 
-TPU mapping: the per-step drift/vol pairs ship in the same flat f32 SMEM
+Device mapping: the per-step drift/vol pairs ship in the same flat f32
 vector as the scalar params; the step loop reads ``drift_dt[j]`` /
-``vol_sdt[j]`` as dynamic SMEM scalar loads — no HBM traffic, no layout
-change to the (tile_rows, 128) register compute.  Counter layout matches
+``vol_sdt[j]`` as dynamic scalar loads — no layout change to the
+(tile_rows, 128) tile compute.  Counter layout matches
 the GBM euler kernel (one threefry pair per step pair).
 """
 
@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -37,8 +37,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -80,8 +79,8 @@ class TermStructure:
 DEMO_TERM = TermStructure.from_knots([0.10, 0.07, 0.05],
                                      [0.15, 0.22, 0.30], 100)
 
-# SMEM layout: [s0, k, t, barrier, p1, p2, q, dt, inv_n, r_bar, sigma_bar,
-#               drift_dt(n_steps), vol_sdt(n_steps)]
+# Parameter-vector layout: [s0, k, t, barrier, p1, p2, q, dt, inv_n, r_bar, sigma_bar,
+#                           drift_dt(n_steps), vol_sdt(n_steps)]
 _HDR = 11
 
 
@@ -133,12 +132,12 @@ def _term_leg(payoff, n_steps: int, p, s0, draw_pair, drift_at, vol_at,
 
 
 def _term_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1,
-               drift_at, vol_at, bitcast):
+               drift_at, vol_at):
     shape = ids.shape
 
     def draw_pair(m):
         c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-        return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast)
+        return rng.normal_pair(k0, k1, ids, c1)
 
     s0 = jnp.full(shape, p.s0, jnp.float32)
     pay = _term_leg(payoff, n_steps, p, s0, draw_pair, drift_at, vol_at)
@@ -149,53 +148,11 @@ def _term_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_term_kernel(payoff, cfg: pk.KernelConfig):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = cfg.n_steps
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_term_head(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        drift_at = lambda j: params_ref[_HDR + j]
-        vol_at = lambda j: params_ref[_HDR + n + j]
-        pay = _term_tile(payoff, n, cfg.antithetic, p, ids, valid,
-                         key_ref[0], key_ref[1], drift_at, vol_at,
-                         pltpu.bitcast)
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-def _term_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
-                   engine="pallas", interpret=None):
+def _term_partials(payoff, cfg, key, params, path_offset=0, n_valid=None):
     """(sum, sumsq) (8,128) slabs for this shard's global path-id range."""
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_term_kernel(payoff, cfg),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     p = _unpack_term_head(params)
     n = cfg.n_steps
     k0 = jnp.asarray(key[0], jnp.uint32)
@@ -205,7 +162,7 @@ def _term_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
 
     def tile_fn(ids, valid):
         pay = _term_tile(payoff, n, cfg.antithetic, p, ids, valid, k0, k1,
-                         drift_at, vol_at, jax.lax.bitcast_convert_type)
+                         drift_at, vol_at)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -214,17 +171,13 @@ def _term_partials(payoff, cfg, key, params, path_offset=0, n_valid=None,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "engine", "antithetic", "tile_rows",
-                     "interpret"))
-def _price_term_impl(option, term, payoff, sim, engine, antithetic,
-                     tile_rows, interpret, key):
-    if interpret is None:
-        interpret = use_interpret()
+    static_argnames=("payoff", "sim", "antithetic", "tile_rows"))
+def _price_term_impl(option, term, payoff, sim, antithetic,
+                     tile_rows, key):
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic)
     params = _pack_term(option, term, sim.n_steps)
-    s, sq = _term_partials(payoff, cfg, key, params, engine=engine,
-                           interpret=interpret)
+    s, sq = _term_partials(payoff, cfg, key, params)
     # curve discount: exp(-sum r_j dt) = exp(-r_bar * T)
     t = jnp.float32(option.t)
     discount = jnp.exp(-params[9] * t)
@@ -237,12 +190,10 @@ def price_term(option: OptionParams = DEMO_OPTION,
                sim: SimParams = DEMO_SIM,
                payoff="vanilla_call",
                *,
-               engine: str = "pallas",
                antithetic: bool = False,
                tile_rows: int = 128,
                stream: int = STREAM_OUTER,
-               key=None,
-               interpret: Optional[bool] = None) -> PriceResult:
+               key=None) -> PriceResult:
     """Monte Carlo price under per-step rate and volatility CURVES.
 
     ``term.rates`` / ``term.sigmas`` must have length ``sim.n_steps``
@@ -269,5 +220,5 @@ def price_term(option: OptionParams = DEMO_OPTION,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0x7E53),
                           jnp.uint32)
     return _price_term_impl(option.as_f32(), t32, po,
-                            sim.replace(seed=0), engine, antithetic,
-                            tile_rows, interpret, key)
+                            sim.replace(seed=0), antithetic,
+                            tile_rows, key)

@@ -19,13 +19,13 @@ diffusion) is jointly Gaussian with known covariance from the OU kernels
     Var(u)       = sigma_s^2 dt,
 
 B = (1-e^{-a dt})/a, C2 = (1-e^{-2a dt})/(2a); the 3x3 Cholesky is
-computed once at trace time and shipped in SMEM.  State per path is
+computed once at trace time and shipped in the parameter vector.  State per path is
 (x = r - b, y = int r du, w = log S/S0): exact updates
 
     y += b dt + x B + eta;  w += (same) - (q + sigma_s^2/2) dt + u;
     x  = x e^{-a dt} + eps.
 
-TPU mapping: 3 normals/step => the step loop consumes PAIRS two steps at
+Device mapping: 3 normals/step => the step loop consumes PAIRS two steps at
 a time (3 threefry pairs per step pair, like the Merton/CEV kernels), so
 n_steps must be even.  Registry payoffs plug in unchanged on the S path;
 the `zcb` payoff (pays 1) prices the discount bond itself.
@@ -39,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from types import SimpleNamespace
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -49,8 +49,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import (LANES, SUBLANES, use_interpret,
-                                xla_moment_scan)
+from mc_tpu.ops._pallas import xla_moment_scan
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -94,7 +93,7 @@ def ou_gap(x):
     covariance entries it is assembled from, so the textbook
     c11 - c10^2/c00 form loses ~x^-2 relative digits in f32 —
     catastrophic at per-step x = a*dt (measured: the discriminant went
-    NEGATIVE on the TPU backend at n_steps=16, the 1e-30 floor made
+    NEGATIVE on an accelerator backend at n_steps=16, the 1e-30 floor made
     l22 ~ 1e-15, and the l32 division exploded the kernel to NaN on
     every engine).  Stable split: Maclaurin through x^9 below 0.5
     (truncation < 5e-7 rel), the closed tanh form above (cancellation
@@ -141,8 +140,8 @@ def _pack_vasicek(option, dyn, n_steps):
     # in closed cancellation-free form — the spot row simplifies all the
     # way down: l31^2 + l32^2 == rho^2 sigma_s^2 dt exactly, so
     # l33 = sigma_s sqrt(dt) sqrt(1 - rho^2) (rank-2 at rho = +-1 is
-    # exact, no jitter needed).  Unrolled scalars — jnp.linalg.cholesky's
-    # TPU custom call costs ~1.5 ms of invocation latency (see
+    # exact, no jitter needed).  Unrolled scalars fuse into the program;
+    # jnp.linalg.cholesky is a library call outside it (see
     # basket.chol_scalars).
     e1, big_b, l11, l21, l22 = ou_chol2(a, sigma_r, dt)
     x = a * dt
@@ -182,7 +181,7 @@ def vasicek_step(p, carry, za, zb, zc, s0):
 
 
 def _vasicek_leg(payoff, n_steps: int, p, s0, draw_pair,
-                 antithetic_sign=1.0, on_step=None):
+                 antithetic_sign=1.0):
     """Exact Gaussian leg; 3 pairs per TWO steps (even n_steps)."""
     sign = jnp.float32(antithetic_sign)
     state0 = payoff.init(p, jnp.zeros_like(s0))
@@ -198,11 +197,7 @@ def _vasicek_leg(payoff, n_steps: int, p, s0, draw_pair,
         z2, z3 = draw_pair(3 * j + 1)
         z4, z5 = draw_pair(3 * j + 2)
         carry, s = one_step(carry, sign * z0, sign * z1, sign * z2)
-        if on_step is not None:
-            on_step(2 * j, s, carry)
         carry, s = one_step(carry, sign * z3, sign * z4, sign * z5)
-        if on_step is not None:
-            on_step(2 * j + 1, s, carry)
         return carry, s
 
     zeros = jnp.zeros_like(s0)
@@ -219,18 +214,14 @@ def _vasicek_leg(payoff, n_steps: int, p, s0, draw_pair,
 
 
 def _vasicek_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1,
-                  bitcast, rng_source="threefry13", hw_tag=None):
+                  rng_source="threefry13"):
     shape = ids.shape
 
-    if rng_source == "hw":
-        draw_pair, _ = pk.hw_model_draws(shape, k0, k1, hw_tag)
-    else:
-        rounds = 13 if rng_source == "threefry13" else 20
+    rounds = 13 if rng_source == "threefry13" else 20
 
-        def draw_pair(m):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=bitcast,
-                                   rounds=rounds)
+    def draw_pair(m):
+        c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
+        return rng.normal_pair(k0, k1, ids, c1, rounds=rounds)
 
     s0 = jnp.full(shape, p.s0, jnp.float32)
     pay = _vasicek_leg(payoff, n_steps, p, s0, draw_pair)
@@ -240,57 +231,19 @@ def _vasicek_tile(payoff, n_steps, antithetic, p, ids, valid, k0, k1,
     return jnp.where(valid, pay, 0.0)
 
 
-def _make_vasicek_kernel(payoff, cfg: pk.KernelConfig):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        p = _unpack_vasicek(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        pay = _vasicek_tile(payoff, cfg.n_steps, cfg.antithetic, p, ids,
-                            valid, key_ref[0], key_ref[1], pltpu.bitcast,
-                            rng_source=cfg.rng_source,
-                            hw_tag=meta_ref[0] + jnp.uint32(i))
-        pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
 def _vasicek_partials(payoff, cfg, key, params, path_offset=0,
-                      n_valid=None, engine="pallas", interpret=None):
+                      n_valid=None):
     """(sum, sumsq) (8,128) slabs of PATHWISE-DISCOUNTED payoffs."""
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            _make_vasicek_kernel(payoff, cfg),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]))
     p = _unpack_vasicek(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids, valid):
         pay = _vasicek_tile(payoff, cfg.n_steps, cfg.antithetic, p, ids,
-                            valid, k0, k1, jax.lax.bitcast_convert_type)
+                            valid, k0, k1)
         return [pay, pay * pay]
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
@@ -299,20 +252,16 @@ def _vasicek_partials(payoff, cfg, key, params, path_offset=0,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "engine", "antithetic", "tile_rows",
-                     "interpret", "rng_source"))
-def _price_vasicek_impl(option, dyn, payoff, sim, engine, antithetic,
-                        tile_rows, interpret, key,
+    static_argnames=("payoff", "sim", "antithetic", "tile_rows",
+                     "rng_source"))
+def _price_vasicek_impl(option, dyn, payoff, sim, antithetic,
+                        tile_rows, key,
                         rng_source="threefry13"):
-    if interpret is None:
-        interpret = use_interpret()
-    pk.check_hw_rng(rng_source, engine, antithetic)
     cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic,
                           rng_source=rng_source)
     params = _pack_vasicek(option, dyn, sim.n_steps)
-    s, sq = _vasicek_partials(payoff, cfg, key, params, engine=engine,
-                              interpret=interpret)
+    s, sq = _vasicek_partials(payoff, cfg, key, params)
     # discount already applied pathwise inside the leg
     return summarize(finish_sum(s), finish_sum(sq),
                      jnp.asarray(sim.n_paths, jnp.float32),
@@ -324,13 +273,11 @@ def price_vasicek(option: OptionParams = DEMO_OPTION,
                   sim: SimParams = DEMO_SIM,
                   payoff="vanilla_call",
                   *,
-                  engine: str = "pallas",
                   antithetic: bool = False,
                   tile_rows: int = 128,
                   stream: int = STREAM_OUTER,
                   key=None,
-                  rng_source: str = "threefry13",
-                  interpret: Optional[bool] = None) -> PriceResult:
+                  rng_source: str = "threefry13") -> PriceResult:
     """Monte Carlo price under Black-Scholes–Vasicek stochastic rates.
 
     `option.r` is the INITIAL short rate r0; every registry payoff works
@@ -349,8 +296,8 @@ def price_vasicek(option: OptionParams = DEMO_OPTION,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, 0x7A51),
                           jnp.uint32)
     return _price_vasicek_impl(option.as_f32(), dyn.as_f32(), po,
-                               sim.replace(seed=0), engine, antithetic,
-                               tile_rows, interpret, key,
+                               sim.replace(seed=0), antithetic,
+                               tile_rows, key,
                                rng_source=rng_source)
 
 
@@ -362,70 +309,3 @@ def price_vasicek(option: OptionParams = DEMO_OPTION,
 # ---------------------------------------------------------------------------
 
 
-def _make_vasicek_traj_kernel(payoff, cfg: pk.KernelConfig):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert payoff.n_state <= 1, "trajectory kernel stores one state array"
-
-    def kernel(key_ref, params_ref, meta_ref, s_out, x_out, y_out, st_out,
-               pay_sum, pay_sq, comp_ref):
-        p = _unpack_vasicek(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        k0, k1 = key_ref[0], key_ref[1]
-
-        def draw_pair(m):
-            c1 = jnp.full(shape, 0, jnp.uint32) + jnp.asarray(m, jnp.uint32)
-            return rng.normal_pair(k0, k1, ids, c1, bitcast=pltpu.bitcast)
-
-        def persist(j, s, carry):
-            (w, x, y), state = carry
-            s_out[j] = s
-            x_out[j] = x
-            y_out[j] = y
-            st_out[j] = state[0] if payoff.n_state else jnp.zeros_like(s)
-
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        pay = _vasicek_leg(payoff, cfg.n_steps, p, s0, draw_pair,
-                           on_step=persist)
-        pay = jnp.where(valid, pay, 0.0)
-        pk._accumulate_moments((pay_sum, pay_sq), comp_ref,
-                               [pay, pay * pay], i, cfg.tile_rows)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "interpret"))
-def vasicek_trajectories_kernel(payoff, cfg: pk.KernelConfig, key, params,
-                                n_valid=None, interpret=None):
-    """(S, x, y, state) grids + PATHWISE-DISCOUNTED payoff partials."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = use_interpret()
-    rows = cfg.n_tiles * cfg.tile_rows
-    grid_spec = pl.BlockSpec((cfg.n_steps, cfg.tile_rows, LANES),
-                             lambda i: (0, i, 0), memory_space=pltpu.VMEM)
-    part_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-    bound = (jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    g = jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32)
-    s = jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32)
-    return pl.pallas_call(
-        _make_vasicek_traj_kernel(payoff, cfg),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[grid_spec] * 4 + [part_spec] * 2,
-        out_shape=[g, g, g, g, s, s],
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params,
-      jnp.stack([jnp.uint32(0), bound]))

@@ -109,7 +109,7 @@ def price_cpu(payoff: str, key, n_paths: int, n_steps: int, *, s0=100.0,
 
     The C5 equivalent (tool.cuh:104-173): payoff 'vanilla_call' uses the
     exact terminal draw; 'bullet_call' the full log-Euler loop;
-    'vanilla_call_pair' mirrors the TPU method="terminal_pair" stream
+    'vanilla_call_pair' mirrors the method="terminal_pair" stream
     (element e carries paths (2e, 2e+1) — pass the PATH count, it is
     halved here).  Returns (price, stderr).
     """

@@ -5,7 +5,7 @@
 //   * CPU reference pricers               (inc/tool.cuh:104-173)
 //   * CSV trajectory writer               (testing.cu:37-47)
 // plus a native mirror of the framework's counter-based threefry RNG so the
-// CPU pricers consume the SAME stream as the TPU kernels (the reference's
+// CPU pricers consume the SAME stream as the device kernels (the reference's
 // shared-random-array fixture, inc/testing.cuh:17-42, done properly: the
 // stream is a pure function, not a pre-generated array).
 //
@@ -126,7 +126,7 @@ double black_scholes_call(double s0, double k, double t, double r,
 //              1 = bullet call  (log-Euler loop + window, tool.cuh:155-171)
 //              2 = vanilla call, PAIRED terminal scheme: element e carries
 //                  paths (2e, 2e+1) from both Box-Muller halves of pair 0
-//                  (the TPU method="terminal_pair" stream, mirrored)
+//                  (the method="terminal_pair" stream, mirrored)
 // Returns price; *stderr_out gets the standard error of the mean.
 // ---------------------------------------------------------------------------
 
@@ -165,7 +165,7 @@ static void price_slice(int payoff_kind, uint32_t k0, uint32_t k1,
       float st = s0 * expf(drift_t + vol_t * z);
       pay = st > k ? st - k : 0.0f;
     } else {
-      // Log-space accumulation, matching the TPU kernels: each S_t carries
+      // Log-space accumulation, matching the device kernels: each S_t carries
       // exactly one expf rounding instead of a compounded product.
       float w = 0.0f;
       float st = s0;

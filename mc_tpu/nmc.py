@@ -7,18 +7,16 @@ for every point (outer path, step) of every outer trajectory, estimate the
 conditional expected payoff by ``n_inner`` resumed inner paths, giving the
 price surface used for Bermudan/exposure analysis.
 
-* ``strategy="fused"``   — C11 equivalent: outer history lives in VMEM
-  scratch; nothing but the surface touches HBM.
-* ``strategy="grid"``    — C10 equivalent: consumes the materialized
-  (S, state) HBM grids (kept when trajectories must persist anyway).
-* ``engine="xla"``       — CPU-runnable dual sharing `_nmc_point_tile`
-  with the kernels: bit-for-bit identical surfaces.
+* ``engine="pallas"`` (default on a GPU) — the C9 + C10 pipeline: the
+  trajectory kernel materializes the outer (S, state) grids in HBM, then
+  the inner kernel resumes every (step, path-tile) block in parallel.
+* ``engine="xla"`` (default elsewhere) — the same draws through
+  `_nmc_point_tile`, one outer tile at a time.
 
-The reference's C12 "optimal" task decomposition addressed SM load balance;
-on TPU the per-chip grid is sequential (nothing to balance) and the cross-
-chip balance is by sharding outer paths over the mesh (parallel/mesh.py
-pattern applied to `price_nmc` via standard shard_map — each chip's point
-tiles are its own path range).
+The reference's C12 "optimal" task decomposition balanced inner-path work
+across SMs by hand; here the GPU's block scheduler balances the
+(n_steps x n_tiles) programs, and the cross-device balance is by sharding
+outer paths over the mesh (parallel/nmc_sharded.py).
 """
 
 from __future__ import annotations
@@ -36,12 +34,12 @@ from mc_tpu.engines import STREAM_INNER, STREAM_OUTER, _payoff_namespace
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import nmc_kernels as nk
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES
+from mc_tpu.ops._pallas import LANES, resolve_engine, tile_path_ids
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 from mc_tpu.xva import ExposureMetrics
 
-__all__ = ["price_nmc", "NMCResult", "nmc_auto_tile_rows"]
+__all__ = ["price_nmc", "NMCResult"]
 
 
 @jax.tree_util.register_dataclass
@@ -63,8 +61,7 @@ class NMCResult(ExposureMetrics):
     n_points: Any
     t_horizon: Any = 1.0  # option maturity T (years); set by the pricers
     # outer MARKET-spot grid, same (n_steps, rows, 128) layout as the
-    # value surface; populated by strategy="grid" (the engine
-    # materializes it anyway), None under "fused"/"xla"
+    # value surface (both engines materialize it anyway)
     spot_surface: Any = None
 
     def surface_matrix(self):
@@ -74,12 +71,11 @@ class NMCResult(ExposureMetrics):
         return out[: int(self.outer.n_paths)]
 
     def spot_matrix(self):
-        """(n_paths, n_steps) outer spot grid (grid strategy only)."""
+        """(n_paths, n_steps) outer spot grid."""
         if self.spot_surface is None:
             raise ValueError(
-                "the outer spot grid is only materialized by "
-                "strategy='grid' (engine='pallas'); re-price with it "
-                "for spot-linked metrics")
+                "this result carries no outer spot grid; price it with "
+                "price_nmc for spot-linked metrics")
         n_steps, rows, lanes = self.spot_surface.shape
         out = jnp.moveaxis(self.spot_surface, 0, -1).reshape(
             rows * lanes, n_steps)
@@ -98,8 +94,8 @@ class NMCResult(ExposureMetrics):
         exposure states), the SIGN of the effect flips with the
         position — beta > 0 (default likelier when the market rallies)
         RAISES a long call's CVA but LOWERS a long put's, the right-way
-        case the exposure link cannot express.  Requires
-        strategy="grid" (the materialized outer spot grid)."""
+        case the exposure link cannot express.  Requires the outer spot
+        grid `price_nmc` materializes."""
         from mc_tpu.xva import _grid_weights
         s = self.spot_matrix()
         v = self.surface_matrix()
@@ -122,13 +118,14 @@ class NMCResult(ExposureMetrics):
 
 def _xla_nmc(payoff, cfg: nk.NMCConfig, key_outer, key_inner, option,
              path_offset=0, n_valid=None):
-    """Pure-jnp dual of the fused kernel (same draws, same Kahan order)."""
+    """XLA engine: per outer tile, the outer history then the inner sweep
+    (same draws as the kernels, same Kahan order for the outer moments).
+    Returns ``(surface, spot_grid, outer_sum, outer_sumsq)``."""
     p = _payoff_namespace(option, cfg.n_steps)
     ko0, ko1 = (jnp.asarray(key_outer[i], jnp.uint32) for i in (0, 1))
     ki0, ki1 = (jnp.asarray(key_inner[i], jnp.uint32) for i in (0, 1))
     shape = (cfg.tile_rows, LANES)
-    flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-            + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
+    flat = tile_path_ids(0, shape)
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
@@ -137,46 +134,14 @@ def _xla_nmc(payoff, cfg: nk.NMCConfig, key_outer, key_inner, option,
         acc, comp = carry
         ids = offset + jnp.uint32(i * cfg.paths_per_tile) + flat
         valid = ids < bound
-
-        # Phase A: outer trajectory with full history (scan over pairs).
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        state0 = payoff.init(p, jnp.zeros_like(s0))
-
-        def one_step(w, state, z):
-            w = w + (p.drift_dt + p.vol_dt * z)
-            s = s0 * jnp.exp(w)  # log-space: one exp rounding per S_t
-            return w, s, payoff.update(state, s, p)
-
-        def pair_step(carry, m):
-            w, s, state = carry
-            c1 = jnp.full(shape, 0, jnp.uint32) + m
-            z0, z1 = rng.normal_pair(ko0, ko1, ids, c1)
-            w, s1, st1 = one_step(w, state, z0)
-            w, s2, st2 = one_step(w, st1, z1)
-            c1v = st1[0] if payoff.n_state else jnp.zeros_like(s1)
-            c2v = st2[0] if payoff.n_state else jnp.zeros_like(s2)
-            return (w, s2, st2), (jnp.stack([s1, s2]), jnp.stack([c1v, c2v]))
-
-        n_pairs = cfg.n_steps // 2
-        (w, s_t, state), (s_hist, c_hist) = jax.lax.scan(
-            pair_step, (jnp.zeros_like(s0), s0, state0),
-            jnp.arange(n_pairs, dtype=jnp.uint32))
-        s_hist = s_hist.reshape(2 * n_pairs, *shape)
-        c_hist = c_hist.reshape(2 * n_pairs, *shape)
-        if cfg.n_steps % 2:
-            c1 = jnp.full(shape, cfg.n_steps // 2, jnp.uint32)
-            z0, _ = rng.normal_pair(ko0, ko1, ids, c1)
-            w, s_t, state = one_step(w, state, z0)
-            cv = state[0] if payoff.n_state else jnp.zeros_like(s_t)
-            s_hist = jnp.concatenate([s_hist, s_t[None]], axis=0)
-            c_hist = jnp.concatenate([c_hist, cv[None]], axis=0)
-
+        (s_t, s_hist, c_hist), state = pk._history_scan(
+            payoff, cfg, p, ko0, ko1, ids)
         pay = jnp.where(valid, payoff.terminal(state, s_t, p), 0.0)
         for m, v in enumerate([pay, pay * pay]):
             acc, comp = pk.kahan_xla_update(
                 acc, comp, m, pk.fold_to_sublanes(v, cfg.tile_rows))
 
-        # Phase B: inner sweep per step.
+        # Inner sweep per step.
         def step_fn(j):
             st_j = (c_hist[j],) if payoff.n_state else ()
             inner_sum = nk._nmc_point_tile(
@@ -187,48 +152,49 @@ def _xla_nmc(payoff, cfg: nk.NMCConfig, key_outer, key_inner, option,
             return jnp.where(valid, v, 0.0)
 
         surf = jax.lax.map(step_fn, jnp.arange(cfg.n_steps))
-        return (acc, comp), surf
+        return (acc, comp), (surf, s_hist)
 
     zeros = (jnp.zeros((2, pk.SUBLANES, LANES), jnp.float32)
              + jnp.float32(0) * offset.astype(jnp.float32))
-    (acc, _), surfs = jax.lax.scan(
+    (acc, _), (surfs, spots) = jax.lax.scan(
         one_tile, (zeros, zeros), jnp.arange(cfg.n_tiles, dtype=jnp.uint32))
-    # (n_tiles, n_steps, tile_rows, 128) -> (n_steps, rows, 128)
-    surface = jnp.moveaxis(surfs, 0, 1).reshape(
-        cfg.n_steps, cfg.n_tiles * cfg.tile_rows, LANES)
-    return surface, acc[0], acc[1]
+
+    def to_grid(x):  # (n_tiles, n_steps, tile_rows, 128) -> step-major
+        return jnp.moveaxis(x, 0, 1).reshape(
+            cfg.n_steps, cfg.n_tiles * cfg.tile_rows, LANES)
+
+    return to_grid(surfs), to_grid(spots), acc[0], acc[1]
+
+
+def nmc_partials(payoff, cfg: nk.NMCConfig, engine, interpret, key_outer,
+                 key_inner, params, option, path_offset=0, n_valid=None):
+    """``(surface, spot_grid, outer_sum, outer_sumsq)`` by either engine."""
+    if engine == "xla":
+        return _xla_nmc(payoff, cfg, key_outer, key_inner, option,
+                        path_offset=path_offset, n_valid=n_valid)
+    kcfg = pk.KernelConfig(n_paths=cfg.n_paths, n_steps=cfg.n_steps,
+                           tile_rows=cfg.tile_rows)
+    s_grid, c_grid, osum, osq = pk.simulate_trajectories_kernel(
+        payoff, kcfg, key_outer, params, path_offset=path_offset,
+        n_valid=n_valid, interpret=interpret)
+    surface = nk.nmc_inner_kernel(
+        payoff, cfg, key_inner, params, s_grid, c_grid,
+        path_offset=path_offset, n_valid=n_valid, interpret=interpret)
+    return surface, s_grid, osum, osq
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "sim", "strategy", "engine", "tile_rows",
-                     "discount", "interpret", "rng_source"))
-def _price_nmc_impl(option, payoff, sim, strategy, engine, tile_rows,
-                    discount, interpret, key_outer, key_inner,
-                    rng_source="threefry13"):
+    static_argnames=("payoff", "sim", "engine", "tile_rows", "discount",
+                     "interpret"))
+def _price_nmc_impl(option, payoff, sim, engine, tile_rows, discount,
+                    interpret, key_outer, key_inner):
     cfg = nk.NMCConfig(
         n_paths=sim.n_paths, n_steps=sim.n_steps, n_inner=sim.n_paths_inner,
-        tile_rows=tile_rows, discount=discount, rng_source=rng_source)
+        tile_rows=tile_rows, discount=discount)
     params = pk.pack_params(option, sim.n_steps)
-
-    spot = None
-    if engine == "xla":
-        surface, osum, osq = _xla_nmc(payoff, cfg, key_outer, key_inner,
-                                      option)
-    elif strategy == "fused":
-        surface, osum, osq = nk.nmc_fused_kernel(
-            payoff, cfg, key_outer, key_inner, params, interpret=interpret)
-    elif strategy == "grid":
-        kcfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
-                               tile_rows=tile_rows)
-        s_grid, c_grid, osum, osq = pk.simulate_trajectories_kernel(
-            payoff, kcfg, key_outer, params, interpret=interpret)
-        surface = nk.nmc_inner_kernel(
-            payoff, cfg, key_inner, params, s_grid, c_grid,
-            interpret=interpret)
-        spot = s_grid  # already materialized; ride it onto the result
-    else:
-        raise ValueError(f"unknown strategy {strategy!r}")
+    surface, spot, osum, osq = nmc_partials(
+        payoff, cfg, engine, interpret, key_outer, key_inner, params, option)
 
     r = jnp.asarray(option.r, jnp.float32)
     t = jnp.asarray(option.t, r.dtype)
@@ -244,41 +210,26 @@ def _price_nmc_impl(option, payoff, sim, strategy, engine, tile_rows,
                      spot_surface=spot)
 
 
-def nmc_auto_tile_rows(n_steps: int, budget_bytes: int = 8 << 20) -> int:
-    """Largest multiple-of-8 tile height whose two (n_steps, rows, 128)
-    f32 history slabs fit the VMEM budget (capped at 64 — measured knee
-    of the ILP curve on v5e: 8 rows -> 11 G, 64 rows -> 36 G inner
-    path-steps/s)."""
-    rows = budget_bytes // (2 * n_steps * 128 * 4)
-    return max(8, min(64, (rows // 8) * 8))
-
-
 def price_nmc(option: OptionParams = DEMO_OPTION,
               sim: SimParams = DEMO_SIM,
               payoff="bullet_call",
               *,
-              strategy: str = "fused",
-              engine: str = "pallas",
-              tile_rows: Optional[int] = None,
+              engine: Optional[str] = None,
+              tile_rows: int = 8,
               discount: str = "full",
-              rng_source: str = "threefry13",
               stream_outer: int = STREAM_OUTER,
               stream_inner: int = STREAM_INNER,
               key_outer=None,
               key_inner=None,
-              interpret: Optional[bool] = None) -> NMCResult:
+              interpret: bool = False) -> NMCResult:
     """Nested Monte Carlo price surface.
 
     ``sim.n_paths_inner`` inner paths re-price every (path, step) point of
-    every outer trajectory.  Default tile_rows=8 bounds the fused kernel's
-    VMEM history at 2 * n_steps * 4 KiB.
+    every outer trajectory.  ``engine`` as in `price`.  A tile of
+    ``tile_rows * 128`` outer paths at one step is one kernel program.
     """
     po = get_payoff(payoff)
-    if rng_source == "hw" and engine != "pallas":
-        raise ValueError("rng_source='hw' requires engine='pallas' "
-                         "(the stateful hardware PRNG has no XLA dual)")
-    if tile_rows is None:
-        tile_rows = nmc_auto_tile_rows(sim.n_steps)
+    engine = resolve_engine(engine, interpret)
     if po.n_state > 1:
         raise ValueError("NMC supports payoffs with at most one state array")
     if key_outer is None:
@@ -287,6 +238,6 @@ def price_nmc(option: OptionParams = DEMO_OPTION,
     if key_inner is None:
         key_inner = jnp.asarray(rng.derive_key(sim.seed, stream_inner),
                                 jnp.uint32)
-    return _price_nmc_impl(option.as_f32(), po, sim.replace(seed=0),
-                           strategy, engine, tile_rows, discount, interpret,
-                           key_outer, key_inner, rng_source)
+    return _price_nmc_impl(option.as_f32(), po, sim.replace(seed=0), engine,
+                           tile_rows, discount, interpret, key_outer,
+                           key_inner)

@@ -24,7 +24,6 @@ within-family pallas/XLA parity is bitwise as everywhere else.
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -93,7 +92,7 @@ class BasketNMC(NMCFamily):
         return tuple(new_ws)
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         d = self.d
         npps = (d + 1) // 2
         # resume: per-asset log-moneyness from the stored price levels
@@ -107,8 +106,7 @@ class BasketNMC(NMCFamily):
                       + jnp.asarray(u, jnp.uint32) * jnp.uint32(npps)
                       + jnp.uint32(q))
                 c1 = jnp.full(ids.shape, 0, jnp.uint32) + cc
-                z0, z1 = rng.normal_pair(ki0, ki1, ids, c1,
-                                         bitcast=bitcast)
+                z0, z1 = rng.normal_pair(ki0, ki1, ids, c1)
                 zs += [z0, z1]
             ws = self._mix_step(p, ws, zs[:d])
             b = self._basket_of(p, d, ws)
@@ -222,8 +220,7 @@ class BasketNMC(NMCFamily):
         b0 = self._basket_of(p, self.d, tuple(zeros for _ in range(self.d)))
         return (tuple(zeros for _ in range(self.d)), b0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         d = self.d
         npps = (d + 1) // 2
         ws, _, state = carry
@@ -231,7 +228,7 @@ class BasketNMC(NMCFamily):
         for q in range(npps):
             c1 = (jnp.full(ids.shape, 0, jnp.uint32)
                   + m * jnp.uint32(npps) + jnp.uint32(q))
-            z0, z1 = rng.normal_pair(ko0, ko1, ids, c1, bitcast=bitcast)
+            z0, z1 = rng.normal_pair(ko0, ko1, ids, c1)
             zs += [z0, z1]
         ws = self._mix_step(p, ws, zs[:d])
         b = self._basket_of(p, d, ws)
@@ -250,12 +247,9 @@ def price_nmc_basket(option: OptionParams = DEMO_OPTION,
                      sim: SimParams = DEMO_SIM,
                      payoff="vanilla_call",
                      *,
-                     engine: str = "pallas",
-                     strategy: str = "grid",
                      tile_rows: int = 8,
                      stream_outer: int = 0,
-                     stream_inner: int = 1,
-                     interpret: Optional[bool] = None) -> NMCResult:
+                     stream_inner: int = 1) -> NMCResult:
     """Nested MC price surface on a correlated d-asset basket.
 
     Every (path, step) point is re-priced by ``sim.n_paths_inner`` inner
@@ -266,10 +260,9 @@ def price_nmc_basket(option: OptionParams = DEMO_OPTION,
     """
     b32 = basket.as_f32()
     return price_nmc_family(BasketNMC(extras=(b32.d,)), option, b32, sim,
-                            payoff, engine=engine,
-                            strategy=strategy, tile_rows=tile_rows,
+                            payoff, tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 def _basket_builder(option, dyn, sim):

@@ -23,7 +23,6 @@ step layout as the standalone `price_bates` Euler leg.
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -72,7 +71,7 @@ class BatesNMC(NMCFamily):
         return _unpack_bates(params)
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         s_t, v_t = grids_j
         kmax = self.kmax
 
@@ -80,12 +79,11 @@ class BatesNMC(NMCFamily):
             w, v, state = carry2
             cu = c_base + jnp.uint32(3) * jnp.asarray(u, jnp.uint32)
             c1 = jnp.full(ids.shape, 0, jnp.uint32) + cu
-            z_v, z_p = rng.normal_pair(ki0, ki1, ids, c1, bitcast=bitcast)
-            e, _ = rng.normal_pair(ki0, ki1, ids, c1 + jnp.uint32(1),
-                                   bitcast=bitcast)
+            z_v, z_p = rng.normal_pair(ki0, ki1, ids, c1)
+            e, _ = rng.normal_pair(ki0, ki1, ids, c1 + jnp.uint32(1))
             b0, _ = rng.threefry2x32(ki0, ki1, ids, c1 + jnp.uint32(2),
                                      rounds=rng.DEFAULT_ROUNDS)
-            uu = rng.bits_to_unit(b0, bitcast)
+            uu = rng.bits_to_unit(b0)
             w, v = heston_euler_step(p, w, v, z_v, z_p, p.dt, p.sqrt_dt)
             nj = _poisson_inv_cdf(uu, p.lam_dt, kmax)
             w = w + _jump_increment(p, nj, e)
@@ -164,17 +162,15 @@ class BatesNMC(NMCFamily):
         # spot the step persisted (see nmc_merton.MertonNMC.outer_init)
         return (jnp.zeros_like(s0), jnp.full_like(s0, p.v0), s0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         w, v, s, state = carry
         base = jnp.uint32(3) * m
         c1 = jnp.full(ids.shape, 0, jnp.uint32) + base
-        z_v, z_p = rng.normal_pair(ko0, ko1, ids, c1, bitcast=bitcast)
-        e, _ = rng.normal_pair(ko0, ko1, ids, c1 + jnp.uint32(1),
-                               bitcast=bitcast)
+        z_v, z_p = rng.normal_pair(ko0, ko1, ids, c1)
+        e, _ = rng.normal_pair(ko0, ko1, ids, c1 + jnp.uint32(1))
         b0, _ = rng.threefry2x32(ko0, ko1, ids, c1 + jnp.uint32(2),
                                  rounds=rng.DEFAULT_ROUNDS)
-        uu = rng.bits_to_unit(b0, bitcast)
+        uu = rng.bits_to_unit(b0)
         w, v = heston_euler_step(p, w, v, z_v, z_p, p.dt, p.sqrt_dt)
         nj = _poisson_inv_cdf(uu, p.lam_dt, self.kmax)
         w = w + _jump_increment(p, nj, e)
@@ -193,12 +189,9 @@ def price_nmc_bates(option: OptionParams = DEMO_OPTION,
                     sim: SimParams = DEMO_SIM,
                     payoff="vanilla_call",
                     *,
-                    engine: str = "pallas",
-                    strategy: str = "grid",
                     tile_rows: int = 8,
                     stream_outer: int = STREAM_OUTER,
-                    stream_inner: int = STREAM_INNER,
-                    interpret: Optional[bool] = None) -> NMCResult:
+                    stream_inner: int = STREAM_INNER) -> NMCResult:
     """Nested MC price surface under Bates SVJ dynamics.
 
     Every (path, step) point is re-priced by ``sim.n_paths_inner`` inner
@@ -207,10 +200,9 @@ def price_nmc_bates(option: OptionParams = DEMO_OPTION,
     """
     kmax = poisson_kmax(float(dyn.lam) * float(option.t) / sim.n_steps)
     return price_nmc_family(BatesNMC(extras=(kmax,)), option,
-                            dyn.as_f32(), sim, payoff, engine=engine,
-                            strategy=strategy, tile_rows=tile_rows,
+                            dyn.as_f32(), sim, payoff, tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 def _bates_builder(option, dyn, sim):

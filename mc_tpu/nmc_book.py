@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
@@ -38,11 +38,11 @@ import numpy as np
 
 from mc_tpu import rng
 from mc_tpu.config import DEMO_SIM, OptionParams, SimParams
-from mc_tpu.nmc import STREAM_INNER, STREAM_OUTER, _xla_nmc
+from mc_tpu.nmc import STREAM_INNER, STREAM_OUTER, nmc_partials
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import nmc_kernels as nk
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES
+from mc_tpu.ops._pallas import LANES, resolve_engine
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 from mc_tpu.xva import ExposureMetrics
@@ -86,56 +86,35 @@ class NMCBookResult(ExposureMetrics):
 @functools.partial(
     jax.jit,
     static_argnames=("fam", "payoff", "sim", "n_contracts", "engine",
-                     "tile_rows", "interpret"))
+                     "tile_rows"))
 def _price_nmc_book_impl(options, dyn, weights, payoff, sim, n_contracts,
-                         engine, tile_rows, interpret, key_outer,
-                         key_inner, fam=None):
+                         engine, tile_rows, key_outer, key_inner, fam=None):
     cfg = nk.NMCConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                        n_inner=sim.n_paths_inner, tile_rows=tile_rows)
-    kcfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
-                           tile_rows=tile_rows)
     n_pathsf = jnp.asarray(sim.n_paths, jnp.float32)
     valid_rows = (jnp.arange(cfg.n_tiles * tile_rows * LANES,
                              dtype=jnp.uint32).reshape(
                       cfg.n_tiles * tile_rows, LANES)
                   < jnp.uint32(sim.n_paths))
-    if engine not in ("pallas", "xla"):
-        raise ValueError(f"unknown engine {engine!r}")
 
-    # lax.scan over the contract rows: the trajectory + inner kernels
-    # compile ONCE (only the traced SMEM params vector differs per
-    # contract), so compile time stays flat in B.
+    # lax.scan over the contract rows: the NMC program compiles ONCE
+    # (only the traced params vector differs per contract), so compile
+    # time stays flat in B.
     def body(net, xs):
         opt_b, w = xs
         if fam is not None:
-            from mc_tpu.nmc_engine import (_xla_nmc_family,
-                                           family_inner_kernel)
+            from mc_tpu.nmc_engine import _xla_nmc_family
             params = fam.pack(opt_b, dyn, sim.n_steps)
             p_b = fam.unpack(params)
-            if engine == "xla":
-                surface, osum, osq = _xla_nmc_family(
-                    fam, payoff, sim, params, key_outer, key_inner,
-                    tile_rows)
-            else:
-                *grids, osum, osq = fam.trajectories(
-                    payoff, kcfg, key_outer, params, interpret)
-                surface = family_inner_kernel(
-                    fam, payoff, sim.n_steps, sim.n_paths_inner,
-                    tile_rows, kcfg.n_tiles, key_inner, params,
-                    tuple(grids), sim.n_paths, interpret=interpret)
+            surface, _, osum, osq = _xla_nmc_family(
+                fam, payoff, sim, params, key_outer, key_inner, tile_rows)
             outer_b = summarize(finish_sum(osum), finish_sum(osq),
                                 n_pathsf, fam.outer_discount(p_b))
         else:
             params = pk.pack_params(opt_b, sim.n_steps)
-            if engine == "xla":
-                surface, osum, osq = _xla_nmc(payoff, cfg, key_outer,
-                                              key_inner, opt_b)
-            else:
-                s_g, c_g, osum, osq = pk.simulate_trajectories_kernel(
-                    payoff, kcfg, key_outer, params, interpret=interpret)
-                surface = nk.nmc_inner_kernel(payoff, cfg, key_inner,
-                                              params, s_g, c_g,
-                                              interpret=interpret)
+            surface, _, osum, osq = nmc_partials(
+                payoff, cfg, engine, False, key_outer, key_inner, params,
+                opt_b)
             outer_b = summarize(
                 finish_sum(osum), finish_sum(osq), n_pathsf,
                 jnp.exp(-jnp.float32(opt_b.r) * jnp.float32(opt_b.t)))
@@ -163,11 +142,9 @@ def price_nmc_book(options: OptionParams,
                    *,
                    model: str = "gbm",
                    dyn=None,
-                   engine: str = "pallas",
                    tile_rows: int = 8,
                    stream_outer: int = STREAM_OUTER,
-                   stream_inner: int = STREAM_INNER,
-                   interpret: Optional[bool] = None) -> NMCBookResult:
+                   stream_inner: int = STREAM_INNER) -> NMCBookResult:
     """Netting-set NMC: netted EE/PFE/CVA over a B-contract book.
 
     ``options``: OptionParams with (B,)-array fields — market-data fields
@@ -179,7 +156,8 @@ def price_nmc_book(options: OptionParams,
     dynamics ``dyn`` — the scenarios stay CRN-shared across contracts,
     and a B=1 book is bitwise-equal to `price_nmc_<model>` ("basket"
     nets contracts on the SAME correlated d-asset state: a book of
-    basket options at different strikes).
+    basket options at different strikes).  GBM books run `price_nmc`'s
+    engine for the platform; family books run the family engine.
     """
     po = get_payoff(payoff)
     if po.n_state > 1:
@@ -232,6 +210,6 @@ def price_nmc_book(options: OptionParams,
     key_inner = jnp.asarray(rng.derive_key(sim.seed, stream_inner, *tag),
                             jnp.uint32)
     return _price_nmc_book_impl(opt32, dyn32, weights, po,
-                                sim.replace(seed=0), n_contracts, engine,
-                                tile_rows, interpret, key_outer,
+                                sim.replace(seed=0), n_contracts,
+                                resolve_engine(None), tile_rows, key_outer,
                                 key_inner, fam=fam)

@@ -17,7 +17,6 @@ is FLAT at the time-0 CEV price (Schroder-oracle-checked) at every step.
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -65,14 +64,14 @@ class CEVNMC(NMCFamily):
         return s, payoff.update(state, s, p)
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         (s_t,) = grids_j
 
         def body(q, carry2):
             s, state = carry2
             c1 = (jnp.full(ids.shape, 0, jnp.uint32) + c_base
                   + jnp.asarray(q, jnp.uint32))
-            z0, z1 = rng.normal_pair(ki0, ki1, ids, c1, bitcast=bitcast)
+            z0, z1 = rng.normal_pair(ki0, ki1, ids, c1)
             s1, st1 = self._substep(payoff, p, s, state, z0)
             s2, st2 = self._substep(payoff, p, s1, st1, z1)
             take2 = (2 * q + 1) < remaining
@@ -106,11 +105,10 @@ class CEVNMC(NMCFamily):
     def outer_init(self, p, ctx, s0, state0):
         return (s0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         s, state = carry
         c1 = jnp.full(ids.shape, 0, jnp.uint32) + m
-        z0, z1 = rng.normal_pair(ko0, ko1, ids, c1, bitcast=bitcast)
+        z0, z1 = rng.normal_pair(ko0, ko1, ids, c1)
         recs = []
         for z in (z0, z1):
             s, state = self._substep(payoff, p, s, state, z)
@@ -128,20 +126,16 @@ def price_nmc_cev(option: OptionParams = DEMO_OPTION,
                   sim: SimParams = DEMO_SIM,
                   payoff="vanilla_call",
                   *,
-                  engine: str = "pallas",
-                  strategy: str = "grid",
                   tile_rows: int = 8,
                   stream_outer: int = 0,
-                  stream_inner: int = 1,
-                  interpret: Optional[bool] = None) -> NMCResult:
+                  stream_inner: int = 1) -> NMCResult:
     """Nested MC price surface under CEV local volatility: exposure
     profiles (``result.exposure_profile()``) and CVA under the
     parametric skew."""
     return price_nmc_family(CEVNMC(), option, dyn.as_f32(), sim, payoff,
-                            engine=engine, strategy=strategy,
                             tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 register_nmc_family(

@@ -9,32 +9,27 @@ independent, driven by a small per-family physics object:
 
 - `NMCFamily` — the protocol.  A family subclass supplies parameter
   packing, the inner-leg step physics (resume carry + per-substep draw
-  scheme + terminal value), the trajectory kernel that materializes its
-  outer state grids, the matching XLA outer scan, and its discount
+  scheme + terminal value), its outer scan, and its discount
   conventions.  Instances are frozen/hashable so they ride through
   ``jax.jit`` as static arguments (per-call static specializations like
   Merton's Poisson scan depth live in ``extras``).
 - `family_point_tile` — the shared inner-MC driver: the Kahan-compensated
   loop over ``n_inner`` legs with the C10 counter layout
   ``c_base = ((j+1)*n_inner + m) * stride`` (nmc.cuh:53-66 analogue).
-- `family_inner_kernel` — the shared Pallas inner kernel: grid over
-  (step, path-tile), outer state tiles streamed from HBM, inner legs kept
-  in registers.
-- `_xla_nmc_family` — the shared pure-jnp dual rebuilding identical
-  streams (bit-for-bit engine parity, the framework-wide invariant).
+- `_xla_nmc_family` — the shared engine: per outer tile, the family's
+  outer scan, then the inner sweep over every step.
 - `price_nmc_family` — the shared entry point: payoff/state validation,
   even-step and RNG-counter-span guards, per-family key derivation.
 
 Adding family number N+1 is now a dynamics definition: subclass
-`NMCFamily`, point it at the model's step function and trajectory
-kernel, and register it (see `nmc_cev.py` — under 100 lines).
+`NMCFamily`, point it at the model's step function, and register it (see `nmc_cev.py` — under 100 lines).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict
 
 import jax
 import jax.numpy as jnp
@@ -44,12 +39,11 @@ from mc_tpu.config import OptionParams, SimParams
 from mc_tpu.nmc import NMCResult
 from mc_tpu.oracle import summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES, SUBLANES, use_interpret
+from mc_tpu.ops._pallas import LANES, SUBLANES
 from mc_tpu.ops.payoffs import PathPayoff, get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
-__all__ = ["NMCFamily", "family_point_tile", "family_inner_kernel",
-           "family_fused_kernel", "price_nmc_family",
+__all__ = ["NMCFamily", "family_point_tile", "price_nmc_family",
            "price_nmc_family_sharded", "NMC_FAMILIES",
            "NMC_FAMILY_BUILDERS", "register_nmc_family"]
 
@@ -97,7 +91,7 @@ class NMCFamily:
 
     # --- physics -------------------------------------------------------
     def leg(self, payoff: PathPayoff, p, ctx, ki0, ki1, ids, c_base, j,
-            remaining, grids_j, state_t, bitcast, n_steps: int):
+            remaining, grids_j, state_t, n_steps: int):
         """One inner leg resumed from the stored point state ``grids_j``:
         run ``remaining`` substeps and return the terminal payoff value
         (including any pathwise inner discount)."""
@@ -113,23 +107,15 @@ class NMCFamily:
         """Discount used by the outer-path summarize."""
         return jnp.exp(-p.r * p.t)
 
-    # --- kernels -------------------------------------------------------
-    def trajectories(self, payoff, cfg, key, params, interpret):
+    # --- outer grids ---------------------------------------------------
+    def trajectories(self, payoff, cfg, key, params):
         """Materialize the outer state grids: returns
-        ``(*market_grids, c_grid, outer_sum, outer_sq)`` step-major.
-
-        Default: build the grids with the family's `xla_outer` scan —
-        bitwise-identical to a dedicated Pallas trajectories kernel by
-        the engine-parity contract, and only O(1/n_inner) of the total
-        NMC work (the hot inner re-pricing stays in Pallas).  Families
-        with a dedicated trajectories kernel override this.
-        """
+        ``(*market_grids, c_grid, outer_sum, outer_sq)`` step-major,
+        built with the family's `xla_outer` scan."""
         return xla_family_trajectories(self, payoff, cfg, params, key)
 
     # --- outer-path physics --------------------------------------------
-    # The ENGINE owns the outer loop (lax.scan in the XLA dual and grid
-    # trajectories; fori_loop + VMEM scratch stores in the fused kernel
-    # — Mosaic does not lower scan with stacked outputs inside kernels).
+    # The ENGINE owns the outer loop (a lax.scan over blocks).
     # Families supply one BLOCK transition: ``outer_steps_per_block``
     # substeps advanced per call, matching the family's draw granularity
     # (1 for one-pair-per-step families, 2 for pair-consuming loops).
@@ -141,14 +127,11 @@ class NMCFamily:
         payoff state)."""
         raise NotImplementedError
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         """Advance ``outer_steps_per_block`` substeps from block index
         ``m`` (traced uint32; outer draw counters derive from it).
         Returns ``(carry, recs)`` — recs a tuple of per-substep records,
-        each record ``(*market_grid_rows, cv)``.  Pure jnp + lax only:
-        the SAME function runs in the XLA dual (default ``bitcast``)
-        and inside the fused Pallas kernel (``pltpu.bitcast``)."""
+        each record ``(*market_grid_rows, cv)``."""
         raise NotImplementedError
 
     def outer_pay(self, payoff, p, ctx, carry):
@@ -157,7 +140,7 @@ class NMCFamily:
         raise NotImplementedError
 
     def xla_outer(self, payoff, p, ctx, ids, ko0, ko1, s0, state0,
-                  n_steps: int, bitcast=jax.lax.bitcast_convert_type):
+                  n_steps: int):
         """Outer scan for one path tile built on the block hooks:
         returns ``(market_hists, c_hist, pay)`` with hists shaped
         (n_steps, *tile)."""
@@ -165,7 +148,7 @@ class NMCFamily:
 
         def block(carry, m):
             carry, recs = self.outer_block(payoff, p, ctx, ids, ko0, ko1,
-                                           carry, m, bitcast)
+                                           carry, m)
             if spb == 1:
                 return carry, recs[0]
             return carry, tuple(jnp.stack(cols) for cols in zip(*recs))
@@ -250,7 +233,7 @@ class NMCFamily:
 
 def family_point_tile(fam: NMCFamily, payoff: PathPayoff, n_steps: int,
                       n_inner: int, p, ctx, ki0, ki1, ids, j, grids_j,
-                      state_t, bitcast):
+                      state_t):
     """Inner-MC payoff SUM over n_inner legs resumed from one
     (path-tile, step j) point; the caller divides and discounts.
 
@@ -266,7 +249,7 @@ def family_point_tile(fam: NMCFamily, payoff: PathPayoff, n_steps: int,
         acc, comp = carry
         c_base = (t_base + jnp.asarray(m, jnp.uint32)) * stride
         pay = fam.leg(payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-                      grids_j, state_t, bitcast, n_steps)
+                      grids_j, state_t, n_steps)
         y = pay - comp
         t = acc + y
         comp = (t - acc) - y
@@ -277,176 +260,10 @@ def family_point_tile(fam: NMCFamily, payoff: PathPayoff, n_steps: int,
     return acc
 
 
-def _make_family_inner_kernel(fam: NMCFamily, payoff: PathPayoff,
-                              n_steps: int, n_inner: int, tile_rows: int):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(ki_ref, params_ref, meta_ref, *refs):
-        grid_refs = refs[:fam.n_grids]
-        c_ref = refs[fam.n_grids]
-        surf_ref = refs[fam.n_grids + 1]
-        p = fam.unpack(params_ref)
-        ctx = fam.make_ctx(params_ref, n_steps)
-        t_idx = pl.program_id(0)
-        i = pl.program_id(1)
-        shape = (tile_rows, LANES)
-        base = jnp.uint32(i * tile_rows * LANES)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        st_j = (c_ref[0],) if payoff.n_state else ()
-        grids_j = tuple(r[0] for r in grid_refs)
-        inner_sum = family_point_tile(
-            fam, payoff, n_steps, n_inner, p, ctx, ki_ref[0], ki_ref[1],
-            ids, t_idx, grids_j, st_j, pltpu.bitcast)
-        v = inner_sum * (1.0 / n_inner) * fam.point_scale(p, grids_j)
-        surf_ref[0] = jnp.where(valid, v, 0.0)
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("fam", "payoff", "n_steps", "n_inner", "tile_rows",
-                     "n_tiles", "interpret"))
-def family_inner_kernel(fam, payoff, n_steps, n_inner, tile_rows, n_tiles,
-                        key_inner, params, grids, n_valid, interpret=None,
-                        path_offset=0):
-    """Grid-strategy inner kernel (C10 analogue): grid over
-    (step, path-tile); re-prices every stored point with the family's
-    inner legs kept in registers.  ``path_offset`` shifts the global
-    path ids (multi-chip shards)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = use_interpret()
-    rows = n_tiles * tile_rows
-    tile3 = pl.BlockSpec((1, tile_rows, LANES), lambda t, i: (t, i, 0),
-                         memory_space=pltpu.VMEM)
-    meta = jnp.stack([jnp.asarray(path_offset, jnp.uint32),
-                      jnp.asarray(n_valid, jnp.uint32)])
-    return pl.pallas_call(
-        _make_family_inner_kernel(fam, payoff, n_steps, n_inner, tile_rows),
-        grid=(n_steps, n_tiles),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3
-        + [tile3] * (fam.n_grids + 1),
-        out_specs=tile3,
-        out_shape=jax.ShapeDtypeStruct((n_steps, rows, LANES), jnp.float32),
-        interpret=interpret,
-    )(jnp.asarray(key_inner, jnp.uint32), params, meta, *grids)
-
-
-def _make_family_fused_kernel(fam: NMCFamily, payoff: PathPayoff,
-                              n_steps: int, n_inner: int, tile_rows: int):
-    """C11 strategy generalized: phase A runs the family's outer-block
-    physics inside the kernel, parking the per-step history in VMEM
-    scratch (nothing but the surface touches HBM); phase B sweeps the
-    per-step inner re-pricing.  Running the same ``outer_block`` the
-    XLA dual and grid trajectories run is what makes the fused surface
-    bitwise equal to the grid strategy with zero duplicated physics."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(ko_ref, ki_ref, params_ref, meta_ref, surf_ref, osum_ref,
-               osq_ref, *scratch):
-        *hist_refs, comp_ref = scratch
-        p = fam.unpack(params_ref)
-        ctx = fam.make_ctx(params_ref, n_steps)
-        i = pl.program_id(0)
-        shape = (tile_rows, LANES)
-        base = jnp.uint32(i * tile_rows * LANES)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        spb = fam.outer_steps_per_block
-
-        # --- Phase A: outer trajectories, history held in VMEM scratch.
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        state0 = payoff.init(p, jnp.zeros_like(s0))
-
-        def outer_body(m, carry):
-            carry, recs = fam.outer_block(
-                payoff, p, ctx, ids, ko_ref[0], ko_ref[1], carry,
-                jnp.asarray(m, jnp.uint32), pltpu.bitcast)
-            for k, rec in enumerate(recs):
-                j = spb * m + k
-                for ref, g in zip(hist_refs, rec):
-                    ref[j] = g
-            return carry
-
-        carry = jax.lax.fori_loop(0, n_steps // spb, outer_body,
-                                  fam.outer_init(p, ctx, s0, state0))
-        pay = jnp.where(valid, fam.outer_pay(payoff, p, ctx, carry), 0.0)
-        pk._accumulate_moments((osum_ref, osq_ref), comp_ref,
-                               [pay, pay * pay], i, tile_rows)
-
-        # --- Phase B: per-step inner conditional-expectation sweep.
-        def step_body(j, _):
-            st_j = (hist_refs[-1][j],) if payoff.n_state else ()
-            grids_j = tuple(ref[j] for ref in hist_refs[:-1])
-            inner_sum = family_point_tile(
-                fam, payoff, n_steps, n_inner, p, ctx, ki_ref[0],
-                ki_ref[1], ids, j, grids_j, st_j, pltpu.bitcast)
-            v = inner_sum * (1.0 / n_inner) * fam.point_scale(p, grids_j)
-            surf_ref[j] = jnp.where(valid, v, 0.0)
-            return 0
-
-        jax.lax.fori_loop(0, n_steps, step_body, 0)
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("fam", "payoff", "n_steps", "n_inner", "tile_rows",
-                     "n_tiles", "interpret"))
-def family_fused_kernel(fam, payoff, n_steps, n_inner, tile_rows, n_tiles,
-                        key_outer, key_inner, params, n_valid,
-                        interpret=None, path_offset=0):
-    """Fused-strategy family NMC: returns (surface, outer_sum, outer_sq)
-    with no outer-state HBM grids (nmc_kernels.nmc_fused_kernel
-    generalized to any registered family)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = use_interpret()
-    rows = n_tiles * tile_rows
-    offset = jnp.asarray(path_offset, jnp.uint32)
-    meta = jnp.stack([offset, jnp.asarray(n_valid, jnp.uint32)])
-    grid_spec = pl.BlockSpec((n_steps, tile_rows, LANES),
-                             lambda i: (0, i, 0),
-                             memory_space=pltpu.VMEM)
-    acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _make_family_fused_kernel(fam, payoff, n_steps, n_inner, tile_rows),
-        grid=(n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 4,
-        out_specs=[grid_spec, acc_spec, acc_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        ],
-        scratch_shapes=(
-            [pltpu.VMEM((n_steps, tile_rows, LANES), jnp.float32)]
-            * (fam.n_grids + 1)  # market-state history slabs + cv
-            + [pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)]),
-        interpret=interpret,
-    )(jnp.asarray(key_outer, jnp.uint32),
-      jnp.asarray(key_inner, jnp.uint32), params, meta)
-
-
 def xla_family_trajectories(fam, payoff, cfg, params, key_outer,
                             path_offset=0, n_valid=None):
     """Step-major outer state grids + outer moment slabs via the family's
-    XLA outer scan (same streams and Kahan order as the Pallas
-    trajectory kernels — the C9 materialization, trajectories.cuh:273-351
+    XLA outer scan (the C9 materialization, trajectories.cuh:273-351
     analogue).  ``path_offset``/``n_valid``: this shard's global path-id
     range (multi-chip sharding keys the streams by GLOBAL id)."""
     p = fam.unpack(params)
@@ -490,7 +307,8 @@ def xla_family_trajectories(fam, payoff, cfg, params, key_outer,
 
 def _xla_nmc_family(fam, payoff, sim, params, key_outer, key_inner,
                     tile_rows, path_offset=0, n_valid=None):
-    """Pure-jnp dual: identical outer/inner streams and Kahan order."""
+    """The family NMC engine: per outer tile, the outer scan then the
+    inner sweep.  Returns ``(surface, spot_grid, outer_sum, outer_sq)``."""
     p = fam.unpack(params)
     ctx = fam.make_ctx(params, sim.n_steps)
     n = sim.n_steps
@@ -523,60 +341,32 @@ def _xla_nmc_family(fam, payoff, sim, params, key_outer, key_inner,
             grids_j = tuple(h[j] for h in hists)
             inner_sum = family_point_tile(
                 fam, payoff, n, sim.n_paths_inner, p, ctx, ki0, ki1, ids,
-                j.astype(jnp.int32), grids_j, st_j,
-                jax.lax.bitcast_convert_type)
+                j.astype(jnp.int32), grids_j, st_j)
             val = (inner_sum * (1.0 / sim.n_paths_inner)
                    * fam.point_scale(p, grids_j))
             return jnp.where(valid, val, 0.0)
 
         surf = jax.lax.map(step_fn, jnp.arange(n))
-        return (acc, comp), surf
+        return (acc, comp), (surf, hists[0])
 
     zeros = jnp.zeros((2, SUBLANES, LANES), jnp.float32)
-    (acc, _), surfs = jax.lax.scan(
+    (acc, _), (surfs, spots) = jax.lax.scan(
         one_tile, (zeros, zeros), jnp.arange(n_tiles, dtype=jnp.uint32))
-    surface = jnp.moveaxis(surfs, 0, 1).reshape(
-        n, n_tiles * tile_rows, LANES)
-    return surface, acc[0], acc[1]
+
+    def to_grid(h):  # (n_tiles, n_steps, tile, LANES) -> step-major
+        return jnp.moveaxis(h, 0, 1).reshape(n, n_tiles * tile_rows, LANES)
+
+    return to_grid(surfs), to_grid(spots), acc[0], acc[1]
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("fam", "payoff", "sim", "engine", "strategy",
-                     "tile_rows", "interpret"))
-def _price_nmc_family_impl(fam, option, dyn, payoff, sim, engine,
-                           strategy, tile_rows, interpret, key_outer,
-                           key_inner):
+    jax.jit, static_argnames=("fam", "payoff", "sim", "tile_rows"))
+def _price_nmc_family_impl(fam, option, dyn, payoff, sim, tile_rows,
+                           key_outer, key_inner):
     params = fam.pack(option, dyn, sim.n_steps)
     p = fam.unpack(params)
-
-    spot = None
-    if engine == "xla":
-        surface, osum, osq = _xla_nmc_family(fam, payoff, sim, params,
-                                             key_outer, key_inner,
-                                             tile_rows)
-    elif engine == "pallas" and strategy == "fused":
-        cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
-                              tile_rows=tile_rows)
-        surface, osum, osq = family_fused_kernel(
-            fam, payoff, sim.n_steps, sim.n_paths_inner, tile_rows,
-            cfg.n_tiles, key_outer, key_inner, params, sim.n_paths,
-            interpret=interpret)
-    elif engine == "pallas" and strategy == "grid":
-        cfg = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
-                              tile_rows=tile_rows)
-        *grids, osum, osq = fam.trajectories(payoff, cfg, key_outer,
-                                             params, interpret)
-        surface = family_inner_kernel(
-            fam, payoff, sim.n_steps, sim.n_paths_inner, tile_rows,
-            cfg.n_tiles, key_inner, params, tuple(grids), sim.n_paths,
-            interpret=interpret)
-        spot = grids[0]  # every family's grid 0 is the market spot
-    elif engine == "pallas":
-        raise ValueError(f"unknown strategy {strategy!r}")
-    else:
-        raise ValueError(f"unknown engine {engine!r}")
-
+    surface, spot, osum, osq = _xla_nmc_family(
+        fam, payoff, sim, params, key_outer, key_inner, tile_rows)
     outer = summarize(finish_sum(osum), finish_sum(osq),
                       jnp.asarray(sim.n_paths, jnp.float32),
                       fam.outer_discount(p))
@@ -617,24 +407,14 @@ def price_nmc_family(fam: NMCFamily,
                      sim: SimParams,
                      payoff="vanilla_call",
                      *,
-                     engine: str = "pallas",
-                     strategy: str = "grid",
                      tile_rows: int = 8,
                      stream_outer: int = STREAM_OUTER,
-                     stream_inner: int = STREAM_INNER,
-                     interpret: Optional[bool] = None) -> NMCResult:
-    """Shared NMC entry point: validation, guards, key derivation.
-
-    ``strategy`` (pallas engine only): "grid" materializes the outer
-    state grids in HBM then re-prices them (C10 analogue); "fused" runs
-    outer simulation + inner sweep in one kernel with the history held
-    in VMEM — zero HBM state (C11 analogue).  Both are bitwise-equal by
-    construction (they run the same ``xla_outer``/``leg`` physics)."""
+                     stream_inner: int = STREAM_INNER) -> NMCResult:
+    """Shared NMC entry point: validation, guards, key derivation."""
     po, key_outer, key_inner = _validate_and_keys(
         fam, sim, payoff, stream_outer, stream_inner)
     return _price_nmc_family_impl(fam, option.as_f32(), dyn, po,
-                                  sim.replace(seed=0), engine, strategy,
-                                  tile_rows, interpret, key_outer,
+                                  sim.replace(seed=0), tile_rows, key_outer,
                                   key_inner)
 
 
@@ -676,24 +456,18 @@ def ensure_family(name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Multi-chip family NMC: outer paths sharded over the mesh.  The engine's
+# Multi-device family NMC: outer paths sharded over the mesh.  The engine's
 # path-offset plumbing keys every stream by GLOBAL path id, so the result
 # is mesh-size invariant and a 1-device mesh is bitwise-identical to the
-# single-chip engine.  Grids are built with the XLA outer scan per shard
-# (bitwise-equal to the dedicated trajectory kernels by the parity
-# contract); the hot inner re-pricing stays in Pallas.  The surface comes
-# back sharded along the path axis — the layout a downstream exposure
-# pipeline wants.
+# single-device engine.  The surface comes back sharded along the path
+# axis — the layout a downstream exposure pipeline wants.
 # ---------------------------------------------------------------------------
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("fam", "payoff", "sim", "mesh", "engine", "strategy",
-                     "tile_rows", "interpret"))
-def _nmc_family_sharded_impl(fam, option, dyn, payoff, sim, mesh, engine,
-                             strategy, tile_rows, interpret, key_outer,
-                             key_inner):
+    jax.jit, static_argnames=("fam", "payoff", "sim", "mesh", "tile_rows"))
+def _nmc_family_sharded_impl(fam, option, dyn, payoff, sim, mesh, tile_rows,
+                             key_outer, key_inner):
     from jax.sharding import PartitionSpec as P
 
     from mc_tpu.parallel.mesh import PATHS_AXIS, shard_bounds
@@ -702,31 +476,15 @@ def _nmc_family_sharded_impl(fam, option, dyn, payoff, sim, mesh, engine,
     n_local = shard_bounds(sim.n_paths, n_shards, tile_rows)
     params = fam.pack(option, dyn, sim.n_steps)
     p = fam.unpack(params)
-    cfg = pk.KernelConfig(n_paths=n_local, n_steps=sim.n_steps,
-                          tile_rows=tile_rows)
     sim_local = sim.replace(n_paths=n_local)
     n_total = jnp.uint32(sim.n_paths)
 
     def shard_fn(ko, ki, params, n_total):
         rank = jax.lax.axis_index(PATHS_AXIS).astype(jnp.uint32)
         offset = rank * jnp.uint32(n_local)
-        if engine == "pallas" and strategy == "fused":
-            surf, osum, osq = family_fused_kernel(
-                fam, payoff, sim.n_steps, sim.n_paths_inner, tile_rows,
-                cfg.n_tiles, ko, ki, params, n_total,
-                interpret=interpret, path_offset=offset)
-        elif engine == "pallas":
-            *grids, osum, osq = xla_family_trajectories(
-                fam, payoff, cfg, params, ko, path_offset=offset,
-                n_valid=n_total)
-            surf = family_inner_kernel(
-                fam, payoff, sim.n_steps, sim.n_paths_inner, tile_rows,
-                cfg.n_tiles, ki, params, tuple(grids), n_total,
-                interpret=interpret, path_offset=offset)
-        else:
-            surf, osum, osq = _xla_nmc_family(
-                fam, payoff, sim_local, params, ko, ki, tile_rows,
-                path_offset=offset, n_valid=n_total)
+        surf, _, osum, osq = _xla_nmc_family(
+            fam, payoff, sim_local, params, ko, ki, tile_rows,
+            path_offset=offset, n_valid=n_total)
         osum = jax.lax.psum(osum, PATHS_AXIS)
         osq = jax.lax.psum(osq, PATHS_AXIS)
         ssum = jax.lax.psum(jnp.sum(surf, dtype=jnp.float32), PATHS_AXIS)
@@ -752,20 +510,16 @@ def _nmc_family_sharded_impl(fam, option, dyn, payoff, sim, mesh, engine,
 def price_nmc_family_sharded(fam: NMCFamily, option, dyn, sim, payoff,
                              *,
                              mesh=None,
-                             engine: str = "pallas",
-                             strategy: str = "grid",
                              tile_rows: int = 8,
                              stream_outer: int = STREAM_OUTER,
-                             stream_inner: int = STREAM_INNER,
-                             interpret: Optional[bool] = None) -> NMCResult:
+                             stream_inner: int = STREAM_INNER) -> NMCResult:
     """Family NMC with outer paths sharded across the mesh (validation +
-    keys shared with the single-chip entry)."""
+    keys shared with the single-device entry)."""
     from mc_tpu.parallel.mesh import make_mesh
 
     po, key_outer, key_inner = _validate_and_keys(
         fam, sim, payoff, stream_outer, stream_inner)
     mesh = mesh if mesh is not None else make_mesh()
     return _nmc_family_sharded_impl(fam, option.as_f32(), dyn, po,
-                                    sim.replace(seed=0), mesh, engine,
-                                    strategy, tile_rows, interpret,
+                                    sim.replace(seed=0), mesh, tile_rows,
                                     key_outer, key_inner)

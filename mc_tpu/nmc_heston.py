@@ -19,7 +19,6 @@ step, z_v and z_perp).
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -27,8 +26,7 @@ import jax.numpy as jnp
 from mc_tpu import rng
 from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.models.heston import (DEMO_HESTON, HestonDynamics, _pack_heston,
-                                  _unpack_heston, heston_euler_step,
-                                  heston_trajectories_kernel)
+                                  _unpack_heston, heston_euler_step)
 from mc_tpu.nmc import NMCResult
 from mc_tpu.nmc_engine import (NMCFamily, price_nmc_family,
                                register_nmc_family)
@@ -56,14 +54,14 @@ class HestonNMC(NMCFamily):
         return _unpack_heston(params)
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         s_t, v_t = grids_j
 
         def step(u, carry2):
             w, v, state = carry2
             c1 = (jnp.full(ids.shape, 0, jnp.uint32) + c_base
                   + jnp.asarray(u, jnp.uint32))
-            z_v, z_p = rng.normal_pair(ki0, ki1, ids, c1, bitcast=bitcast)
+            z_v, z_p = rng.normal_pair(ki0, ki1, ids, c1)
             w, v = heston_euler_step(p, w, v, z_v, z_p, p.dt, p.sqrt_dt)
             state = payoff.update(state, s_t * jnp.exp(w), p)
             return (w, v, state)
@@ -71,10 +69,6 @@ class HestonNMC(NMCFamily):
         w, v, state = jax.lax.fori_loop(
             0, remaining, step, (jnp.zeros_like(s_t), v_t, state_t))
         return payoff.terminal(state, s_t * jnp.exp(w), p)
-
-    def trajectories(self, payoff, cfg, key, params, interpret):
-        return heston_trajectories_kernel(payoff, cfg, key, params,
-                                          interpret=interpret)
 
     def rollout_carry(self, p, ctx, grids_j):
         s_t, v_t = grids_j
@@ -110,11 +104,10 @@ class HestonNMC(NMCFamily):
         # spot the step persisted (see nmc_merton.MertonNMC.outer_init)
         return (jnp.zeros_like(s0), jnp.full_like(s0, p.v0), s0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         w, v, s, state = carry
         c1 = jnp.full(ids.shape, 0, jnp.uint32) + m
-        z_v, z_p = rng.normal_pair(ko0, ko1, ids, c1, bitcast=bitcast)
+        z_v, z_p = rng.normal_pair(ko0, ko1, ids, c1)
         w, v = heston_euler_step(p, w, v, z_v, z_p, p.dt, p.sqrt_dt)
         s = p.s0 * jnp.exp(w)
         state = payoff.update(state, s, p)
@@ -131,12 +124,9 @@ def price_nmc_heston(option: OptionParams = DEMO_OPTION,
                      sim: SimParams = DEMO_SIM,
                      payoff="vanilla_call",
                      *,
-                     engine: str = "pallas",
-                     strategy: str = "grid",
                      tile_rows: int = 8,
                      stream_outer: int = STREAM_OUTER,
-                     stream_inner: int = STREAM_INNER,
-                     interpret: Optional[bool] = None) -> NMCResult:
+                     stream_inner: int = STREAM_INNER) -> NMCResult:
     """Nested MC price surface under Heston stochastic volatility.
 
     Every (path, step) point of the outer trajectories is re-priced by
@@ -145,10 +135,9 @@ def price_nmc_heston(option: OptionParams = DEMO_OPTION,
     (``result.exposure_profile()``) under stochastic vol for XVA.
     """
     return price_nmc_family(HestonNMC(), option, heston.as_f32(), sim,
-                            payoff, engine=engine,
-                            strategy=strategy, tile_rows=tile_rows,
+                            payoff, tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 register_nmc_family(

@@ -28,7 +28,6 @@ substep dropped by a uniform predicated select (the
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +37,6 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.models.localvol import (DEMO_LOCALVOL, LocalVolSurface,
                                     _make_sigma_at, _pack_localvol,
                                     _unpack_localvol_head,
-                                    localvol_trajectories_kernel,
                                     validate_surface)
 from mc_tpu.nmc import NMCResult
 from mc_tpu.nmc_engine import (NMCFamily, price_nmc_family,
@@ -79,7 +77,7 @@ class LocalVolNMC(NMCFamily):
         return _make_sigma_at(params, n_steps, self.n_knots)
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         (s_t,) = grids_j
         sigma_at = ctx
         base_drift = (p.r - p.q) * p.dt
@@ -97,7 +95,7 @@ class LocalVolNMC(NMCFamily):
             w, state = carry2
             c1 = (jnp.full(ids.shape, 0, jnp.uint32) + c_base
                   + jnp.asarray(q, jnp.uint32))
-            z0, z1 = rng.normal_pair(ki0, ki1, ids, c1, bitcast=bitcast)
+            z0, z1 = rng.normal_pair(ki0, ki1, ids, c1)
             u1 = j + 1 + 2 * q
             w1, st1 = substep(w, state, z0, u1)
             w2, st2 = substep(w1, st1, z1, u1 + 1)
@@ -132,10 +130,6 @@ class LocalVolNMC(NMCFamily):
     def rollout_spot(self, p, ctx, carry):
         return p.s0 * jnp.exp(carry[0])
 
-    def trajectories(self, payoff, cfg, key, params, interpret):
-        return localvol_trajectories_kernel(payoff, cfg, self.n_knots, key,
-                                            params, interpret=interpret)
-
     outer_steps_per_block = 2
 
     def outer_init(self, p, ctx, s0, state0):
@@ -143,15 +137,14 @@ class LocalVolNMC(NMCFamily):
         # spot the step persisted (see nmc_merton.MertonNMC.outer_init)
         return (jnp.zeros_like(s0), s0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         # mirrors _localvol_leg's pair loop: pair m -> steps 2m, 2m+1
         sigma_at = ctx
         base_drift = (p.r - p.q) * p.dt
         sdt = jnp.sqrt(p.dt)
         w, s, state = carry
         c1 = jnp.full(ids.shape, 0, jnp.uint32) + m
-        z0, z1 = rng.normal_pair(ko0, ko1, ids, c1, bitcast=bitcast)
+        z0, z1 = rng.normal_pair(ko0, ko1, ids, c1)
         recs = []
         for step_idx, z in ((2 * m, z0), (2 * m + 1, z1)):
             sg = sigma_at(w, step_idx)
@@ -172,12 +165,9 @@ def price_nmc_localvol(option: OptionParams = DEMO_OPTION,
                        sim: SimParams = DEMO_SIM,
                        payoff="vanilla_call",
                        *,
-                       engine: str = "pallas",
-                       strategy: str = "grid",
                        tile_rows: int = 8,
                        stream_outer: int = STREAM_OUTER,
-                       stream_inner: int = STREAM_INNER,
-                       interpret: Optional[bool] = None) -> NMCResult:
+                       stream_inner: int = STREAM_INNER) -> NMCResult:
     """Nested MC price surface under a local-volatility smile.
 
     Every (path, step) point is re-priced by ``sim.n_paths_inner`` inner
@@ -190,10 +180,9 @@ def price_nmc_localvol(option: OptionParams = DEMO_OPTION,
                 else LocalVolSurface.demo(sim.n_steps))
     s32 = validate_surface(surf, sim.n_steps)
     return price_nmc_family(LocalVolNMC(extras=(s32.n_knots,)), option,
-                            s32, sim, payoff, engine=engine,
-                            strategy=strategy, tile_rows=tile_rows,
+                            s32, sim, payoff, tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 def _localvol_builder(option, dyn, sim):

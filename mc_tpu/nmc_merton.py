@@ -21,7 +21,6 @@ with ``c_base = ((j+1) * n_inner + m) * 2 * n_steps``.
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +30,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.models.merton import (DEMO_MERTON, MertonDynamics,
                                   _jump_increment, _pack_merton,
                                   _poisson_inv_cdf, _unpack_merton,
-                                  merton_trajectories_kernel, poisson_kmax)
+                                  poisson_kmax)
 from mc_tpu.nmc import NMCResult
 from mc_tpu.nmc_engine import (NMCFamily, price_nmc_family,
                                register_nmc_family)
@@ -70,7 +69,7 @@ class MertonNMC(NMCFamily):
         return _unpack_merton(params)
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         (s_t,) = grids_j
         kmax = self.kmax
 
@@ -78,11 +77,11 @@ class MertonNMC(NMCFamily):
             w, state = carry2
             cu = c_base + jnp.uint32(2) * jnp.asarray(u, jnp.uint32)
             c1 = jnp.full(ids.shape, 0, jnp.uint32) + cu
-            z, e = rng.normal_pair(ki0, ki1, ids, c1, bitcast=bitcast)
+            z, e = rng.normal_pair(ki0, ki1, ids, c1)
             b0, _ = rng.threefry2x32(ki0, ki1, ids,
                                      c1 + jnp.uint32(1),
                                      rounds=rng.DEFAULT_ROUNDS)
-            uu = rng.bits_to_unit(b0, bitcast)
+            uu = rng.bits_to_unit(b0)
             nj = _poisson_inv_cdf(uu, p.lam_dt, kmax)
             w = w + p.drift_dt + p.vol_dt * z + _jump_increment(p, nj, e)
             state = payoff.update(state, s_t * jnp.exp(w), p)
@@ -132,10 +131,6 @@ class MertonNMC(NMCFamily):
              + _jump_increment(p_f, n1, e1) + _jump_increment(p_f, n2, e2))
         return (s_t, w), jnp.exp(-p_c.r * p_c.dt)
 
-    def trajectories(self, payoff, cfg, key, params, interpret):
-        return merton_trajectories_kernel(payoff, cfg, self.kmax, key,
-                                          params, interpret=interpret)
-
     outer_steps_per_block = 2
 
     def outer_init(self, p, ctx, s0, state0):
@@ -145,12 +140,11 @@ class MertonNMC(NMCFamily):
         # vs the trajectory kernels)
         return (jnp.zeros_like(s0), s0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         from mc_tpu.models.merton import _merton_draw3
         kmax = self.kmax
         w, s, state = carry
-        z0, z1, e0, e1, u0, u1 = _merton_draw3(ko0, ko1, ids, m, bitcast)
+        z0, z1, e0, e1, u0, u1 = _merton_draw3(ko0, ko1, ids, m)
         recs = []
         for z, e, u in ((z0, e0, u0), (z1, e1, u1)):
             nj = _poisson_inv_cdf(u, p.lam_dt, kmax)
@@ -171,12 +165,9 @@ def price_nmc_merton(option: OptionParams = DEMO_OPTION,
                      sim: SimParams = DEMO_SIM,
                      payoff="vanilla_call",
                      *,
-                     engine: str = "pallas",
-                     strategy: str = "grid",
                      tile_rows: int = 8,
                      stream_outer: int = STREAM_OUTER,
-                     stream_inner: int = STREAM_INNER,
-                     interpret: Optional[bool] = None) -> NMCResult:
+                     stream_inner: int = STREAM_INNER) -> NMCResult:
     """Nested MC price surface under Merton jump-diffusion.
 
     Every (path, step) point is re-priced by ``sim.n_paths_inner`` inner
@@ -186,10 +177,9 @@ def price_nmc_merton(option: OptionParams = DEMO_OPTION,
     """
     kmax = poisson_kmax(float(dyn.lam) * float(option.t) / sim.n_steps)
     return price_nmc_family(MertonNMC(extras=(kmax,)), option,
-                            dyn.as_f32(), sim, payoff, engine=engine,
-                            strategy=strategy, tile_rows=tile_rows,
+                            dyn.as_f32(), sim, payoff, tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 def _merton_builder(option, dyn, sim):

@@ -8,15 +8,15 @@ physics IS the correlated log-Euler scheme of `nmc_basket.BasketNMC`
 legs); the only change is the LEVEL the payoff reads — the running
 order statistic ``max_i S_i`` / ``min_i S_i`` instead of the weighted
 sum.  ``RainbowNMC`` therefore subclasses ``BasketNMC`` and overrides
-the level fold alone; every engine strategy (grid / fused / XLA dual /
-sharded) and every registered payoff come for free from the generic
-`nmc_engine` machinery.
+the level fold alone; the single-device and sharded engines and every
+registered payoff come for free from the generic `nmc_engine`
+machinery.
 
 Payoff mapping: a rainbow contract is a VANILLA payoff on the order
 statistic — ``call_on_max = vanilla_call(max_i S_i)``, ``put_on_min =
 vanilla_put(min_i S_i)`` etc. (`models/rainbow.RAINBOW_PAYOFFS`
 folds identically at the terminal date).  `price_nmc_rainbow` accepts
-the rainbow names and maps them; generic consumers (sharded / fused /
+the rainbow names and maps them; generic consumers (sharded /
 book engines) use the standard payoff registry on the aggregated level
 directly.
 
@@ -28,7 +28,6 @@ bitwise; pallas/XLA parity bitwise as everywhere else.
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax.numpy as jnp
 
@@ -89,12 +88,9 @@ def price_nmc_rainbow(option: OptionParams = DEMO_OPTION,
                       sim: SimParams = DEMO_SIM,
                       payoff: str = "call_on_max",
                       *,
-                      engine: str = "pallas",
-                      strategy: str = "grid",
                       tile_rows: int = 8,
                       stream_outer: int = 0,
-                      stream_inner: int = 1,
-                      interpret: Optional[bool] = None) -> NMCResult:
+                      stream_inner: int = 1) -> NMCResult:
     """Nested MC price surface of a rainbow contract on d correlated
     assets: exposure profiles and CVA of best-of / worst-of positions.
 
@@ -106,11 +102,9 @@ def price_nmc_rainbow(option: OptionParams = DEMO_OPTION,
     agg, po = RAINBOW_NMC_PAYOFFS.get(payoff, ("max", payoff))
     b32 = basket.as_f32()
     return price_nmc_family(RainbowNMC(extras=(b32.d, agg)), option,
-                            b32, sim, po, engine=engine,
-                            strategy=strategy, tile_rows=tile_rows,
+                            b32, sim, po, tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner,
-                            interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 def _rainbow_builder(option, dyn, sim):

@@ -15,7 +15,6 @@ z_perp) per substep, matching `price_sabr`'s outer layout.
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -49,15 +48,14 @@ class SABRNMC(NMCFamily):
         return _unpack_sabr(params)
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         f_t, sig_t = grids_j
 
         def step(u, carry2):
             logf, sig, state = carry2
             c1 = (jnp.full(ids.shape, 0, jnp.uint32) + c_base
                   + jnp.asarray(u, jnp.uint32))
-            z_vol, z_perp = rng.normal_pair(ki0, ki1, ids, c1,
-                                            bitcast=bitcast)
+            z_vol, z_perp = rng.normal_pair(ki0, ki1, ids, c1)
             logf, sig = sabr_step(p, logf, sig, z_vol, z_perp)
             state = payoff.update(state, jnp.exp(logf), p)
             return (logf, sig, state)
@@ -91,12 +89,10 @@ class SABRNMC(NMCFamily):
         # forward the step persisted (see nmc_merton.MertonNMC)
         return (jnp.log(f0), jnp.zeros_like(f0) + p.alpha, f0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         logf, sig, f, state = carry
         c1 = jnp.full(ids.shape, 0, jnp.uint32) + m
-        z_vol, z_perp = rng.normal_pair(ko0, ko1, ids, c1,
-                                        bitcast=bitcast)
+        z_vol, z_perp = rng.normal_pair(ko0, ko1, ids, c1)
         logf, sig = sabr_step(p, logf, sig, z_vol, z_perp)
         f = jnp.exp(logf)
         state = payoff.update(state, f, p)
@@ -113,20 +109,16 @@ def price_nmc_sabr(option: OptionParams = DEMO_OPTION,
                    sim: SimParams = DEMO_SIM,
                    payoff="vanilla_call",
                    *,
-                   engine: str = "pallas",
-                   strategy: str = "grid",
                    tile_rows: int = 8,
                    stream_outer: int = 0,
-                   stream_inner: int = 1,
-                   interpret: Optional[bool] = None) -> NMCResult:
+                   stream_inner: int = 1) -> NMCResult:
     """Nested MC price surface under SABR: exposure profiles
     (``result.exposure_profile()``) and CVA under the smile model's own
     dynamics, inner legs resumed from the stored (F_t, sigma_t)."""
     return price_nmc_family(SABRNMC(), option, dyn.as_f32(), sim, payoff,
-                            engine=engine, strategy=strategy,
                             tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 register_nmc_family(

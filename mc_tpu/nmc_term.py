@@ -3,7 +3,7 @@ curves (models/term.py) on the generic engine: exposure profiles whose
 underlying diffuses with the CALENDAR-dated vol and drifts with the
 forward curve, completing the NMC matrix across every step-loop family.
 
-A dynamics definition only: the curves ride the packed SMEM vector
+A dynamics definition only: the curves ride the packed parameter vector
 (drift/vol per step after the scalar head), the inner legs index them by
 ABSOLUTE move index j+1+u (the localvol convention), and discounting is
 the curve-average e^{-r_bar T} (exact for the averaged curve, the
@@ -18,7 +18,6 @@ predicated select.
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -62,7 +61,7 @@ class TermNMC(NMCFamily):
         return (drift_at, vol_at)
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         (s_t,) = grids_j
         drift_at, vol_at = ctx
         w0 = jnp.log(s_t / p.s0)
@@ -77,7 +76,7 @@ class TermNMC(NMCFamily):
             w, state = carry2
             c1 = (jnp.full(ids.shape, 0, jnp.uint32) + c_base
                   + jnp.asarray(q, jnp.uint32))
-            z0, z1 = rng.normal_pair(ki0, ki1, ids, c1, bitcast=bitcast)
+            z0, z1 = rng.normal_pair(ki0, ki1, ids, c1)
             u1 = j + 1 + 2 * q
             w1, st1 = substep(w, state, z0, u1)
             w2, st2 = substep(w1, st1, z1, u1 + 1)
@@ -98,13 +97,12 @@ class TermNMC(NMCFamily):
         # spot the step persisted (see nmc_merton.MertonNMC.outer_init)
         return (jnp.zeros_like(s0), s0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         # mirrors _term_leg's pair loop: pair m -> moves 2m, 2m+1
         drift_at, vol_at = ctx
         w, s, state = carry
         c1 = jnp.full(ids.shape, 0, jnp.uint32) + m
-        z0, z1 = rng.normal_pair(ko0, ko1, ids, c1, bitcast=bitcast)
+        z0, z1 = rng.normal_pair(ko0, ko1, ids, c1)
         recs = []
         for move, z in ((2 * m, z0), (2 * m + 1, z1)):
             w = w + (drift_at(move) + vol_at(move) * z)
@@ -124,12 +122,9 @@ def price_nmc_term(option: OptionParams = DEMO_OPTION,
                    sim: SimParams = DEMO_SIM,
                    payoff="vanilla_call",
                    *,
-                   engine: str = "pallas",
-                   strategy: str = "grid",
                    tile_rows: int = 8,
                    stream_outer: int = 0,
-                   stream_inner: int = 1,
-                   interpret: Optional[bool] = None) -> NMCResult:
+                   stream_inner: int = 1) -> NMCResult:
     """Nested MC price surface under deterministic r(t)/sigma(t) curves:
     exposure profiles whose scenarios respect the term structure."""
     if dyn is None:
@@ -139,10 +134,9 @@ def price_nmc_term(option: OptionParams = DEMO_OPTION,
         raise ValueError(f"term structure has {dyn.rates.shape[0]} steps, "
                          f"sim has {sim.n_steps}")
     return price_nmc_family(TermNMC(), option, dyn.as_f32(), sim, payoff,
-                            engine=engine, strategy=strategy,
                             tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 def _term_builder(option, dyn, sim):

@@ -30,7 +30,6 @@ the fourth is discarded).
 
 from __future__ import annotations
 
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -39,8 +38,7 @@ from mc_tpu import rng
 from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.models.vasicek import (DEMO_VASICEK, VasicekDynamics,
                                    _pack_vasicek, _unpack_vasicek,
-                                   vasicek_step,
-                                   vasicek_trajectories_kernel)
+                                   vasicek_step)
 from mc_tpu.nmc import NMCResult
 from mc_tpu.nmc_engine import (NMCFamily, price_nmc_family,
                                register_nmc_family)
@@ -76,16 +74,15 @@ class VasicekNMC(NMCFamily):
         return jnp.float32(1.0)  # outer payoffs already discounted
 
     def leg(self, payoff, p, ctx, ki0, ki1, ids, c_base, j, remaining,
-            grids_j, state_t, bitcast, n_steps):
+            grids_j, state_t, n_steps):
         s_t, x_t = grids_j[0], grids_j[1]
 
         def step(u, carry2):
             wxy, state = carry2
             cu = jnp.uint32(2) * (c_base + jnp.asarray(u, jnp.uint32))
             c1a = jnp.full(ids.shape, 0, jnp.uint32) + cu
-            za, zb = rng.normal_pair(ki0, ki1, ids, c1a, bitcast=bitcast)
-            zc, _ = rng.normal_pair(ki0, ki1, ids, c1a + jnp.uint32(1),
-                                    bitcast=bitcast)
+            za, zb = rng.normal_pair(ki0, ki1, ids, c1a)
+            zc, _ = rng.normal_pair(ki0, ki1, ids, c1a + jnp.uint32(1))
             wxy, s = vasicek_step(p, wxy, za, zb, zc, s_t)
             return (wxy, payoff.update(state, s, p))
 
@@ -123,10 +120,6 @@ class VasicekNMC(NMCFamily):
         from mc_tpu.lsmc import _basis_sr
         return _basis_sr(s * inv_k, carry[1][1], degree)
 
-    def trajectories(self, payoff, cfg, key, params, interpret):
-        return vasicek_trajectories_kernel(payoff, cfg, key, params,
-                                           interpret=interpret)
-
     def lsmc_design(self, p, grids_flat, degree, inv_k):
         # stochastic-rate LSMC: continuation regressed on (S, r)
         from mc_tpu.lsmc import _basis_sr
@@ -149,14 +142,13 @@ class VasicekNMC(NMCFamily):
         zeros = jnp.zeros_like(s0)
         return ((zeros, jnp.full_like(s0, p.x0), zeros), s0, state0)
 
-    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m,
-                    bitcast):
+    def outer_block(self, payoff, p, ctx, ids, ko0, ko1, carry, m):
         # mirrors _vasicek_leg's pair loop: pairs (3m, 3m+1, 3m+2)
         wxy, s, state = carry
 
         def draw(c):
             c1 = jnp.full(ids.shape, 0, jnp.uint32) + c
-            return rng.normal_pair(ko0, ko1, ids, c1, bitcast=bitcast)
+            return rng.normal_pair(ko0, ko1, ids, c1)
 
         z0, z1 = draw(3 * m)
         z2, z3 = draw(3 * m + 1)
@@ -180,12 +172,9 @@ def price_nmc_vasicek(option: OptionParams = DEMO_OPTION,
                       sim: SimParams = DEMO_SIM,
                       payoff="vanilla_call",
                       *,
-                      engine: str = "pallas",
-                      strategy: str = "grid",
                       tile_rows: int = 8,
                       stream_outer: int = STREAM_OUTER,
-                      stream_inner: int = STREAM_INNER,
-                      interpret: Optional[bool] = None) -> NMCResult:
+                      stream_inner: int = STREAM_INNER) -> NMCResult:
     """Nested MC price surface under stochastic (Vasicek) rates.
 
     Every (path, step) point is re-priced by ``sim.n_paths_inner`` exact
@@ -195,10 +184,9 @@ def price_nmc_vasicek(option: OptionParams = DEMO_OPTION,
     (``result.cva(...)``) under the rates that actually discount them.
     """
     return price_nmc_family(VasicekNMC(), option, dyn.as_f32(), sim,
-                            payoff, engine=engine,
-                            strategy=strategy, tile_rows=tile_rows,
+                            payoff, tile_rows=tile_rows,
                             stream_outer=stream_outer,
-                            stream_inner=stream_inner, interpret=interpret)
+                            stream_inner=stream_inner)
 
 
 register_nmc_family(

@@ -1,32 +1,30 @@
-"""Shared Pallas plumbing: interpret-mode selection and tiling helpers.
+"""Shared tiling helpers, the engine choice, and the Triton-route launcher.
 
-Kernels compile to Mosaic on real TPUs and fall back to the Pallas
-interpreter elsewhere (CPU test meshes), controlled by ``MC_TPU_INTERPRET``:
-``auto`` (default), ``1``/``true`` to force, ``0``/``false`` to forbid.
+The XLA engine and the Pallas kernels tile paths the same way: a tile is
+``tile_rows x 128`` paths, summed to one (8, 128) slab by `fold_to_sublanes`,
+and the slabs are Kahan-accumulated in tile order (`kahan_tiles`).  The
+kernels compile through Pallas's Triton route for NVIDIA GPUs; on any
+other backend they run only when the caller asks for the interpreter.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["use_interpret", "cdiv", "round_up", "LANES", "SUBLANES",
-           "fold_to_sublanes", "kahan_xla_update", "xla_moment_scan",
-           "fused_moment_partials"]
+__all__ = ["cdiv", "round_up", "LANES", "SUBLANES", "fold_to_sublanes",
+           "kahan_xla_update", "kahan_tiles", "xla_moment_scan",
+           "resolve_engine", "triton_call", "tile_path_ids",
+           "kahan_tiles_kernel"]
 
-LANES = 128      # VPU lane count: last-dim tile unit
-SUBLANES = 8     # f32 sublane count: second-to-last-dim tile unit
+LANES = 128      # last-dim tile unit
+SUBLANES = 8     # rows per (8, 128) partial-sum slab and per kernel chunk
 
-
-def use_interpret() -> bool:
-    env = os.environ.get("MC_TPU_INTERPRET", "auto").lower()
-    if env in ("1", "true", "yes"):
-        return True
-    if env in ("0", "false", "no"):
-        return False
-    return jax.default_backend() != "tpu"
+# Warps per Triton program: a program walks its tile in (8, 128) chunks,
+# so 4 warps hold 8 paths per thread.
+NUM_WARPS = 4
 
 
 def cdiv(a: int, b: int) -> int:
@@ -38,13 +36,11 @@ def round_up(x: int, m: int) -> int:
 
 
 def fold_to_sublanes(v, tile_rows: int):
-    """(tile_rows, 128) -> (8, 128) partial sums via static strided adds.
+    """(tile_rows, 128) -> (8, 128) partial sums, row groups added in order.
 
-    The VPU reduces within its native 8x128 register shape; summing groups
-    of 8 sublanes keeps 8x128 partial-sum granularity without a relayout.
-    This is THE summation grouping both engines share — any change here
-    must hold for the Pallas kernels and the XLA duals simultaneously or
-    the bit-identical-engines invariant breaks.
+    This is THE summation grouping every engine shares: the kernels add
+    their (8, 128) chunks in the same order, so the XLA engine and the
+    interpreted kernels agree bit for bit.
     """
     p8 = v[0:SUBLANES]
     for k in range(1, tile_rows // SUBLANES):
@@ -56,9 +52,8 @@ def kahan_xla_update(acc, comp, idx, p8):
     """One Kahan accumulation step on stacked functional arrays.
 
     ``acc``/``comp`` are (..., 8, 128) arrays indexed at ``idx``; returns
-    the updated pair.  The exact op order mirrors the in-kernel ref-based
-    update in path_kernels._accumulate_moments — shared so the engine
-    duals cannot drift apart.
+    the updated pair.  `kahan_tiles` applies the same operations in the
+    same order, so both finishes agree bit for bit.
     """
     a = acc[idx]
     y = p8 - comp[idx]
@@ -66,22 +61,96 @@ def kahan_xla_update(acc, comp, idx, p8):
     return acc.at[idx].set(t), comp.at[idx].set((t - a) - y)
 
 
+def kahan_tiles(parts):
+    """Kahan-sum per-tile (8, 128) slabs ``(n_tiles, 8, 128)`` in tile order
+    (the XLA engine's summation order)."""
+    def body(carry, p8):
+        acc, comp = carry
+        y = p8 - comp
+        t = acc + y
+        return (t, (t - acc) - y), None
+
+    zero = jnp.zeros(parts.shape[1:], jnp.float32)
+    (acc, _), _ = jax.lax.scan(body, (zero, zero), parts)
+    return acc
+
+
+# Every element of a slab is its own Kahan chain, walked in tile order.  A
+# `kahan_tiles_kernel` program takes KAHAN_LANES elements of one slab row
+# (one warp, one element per thread) and loads KAHAN_UNROLL tiles ahead of
+# its running sum: the chain is bound by load latency, not by bandwidth.
+KAHAN_LANES = 32
+KAHAN_UNROLL = 32
+
+
+def _make_kahan_kernel(n_tiles: int):
+    def kahan(slab, carry):
+        acc, comp = carry
+        y = slab - comp
+        t = acc + y
+        return t, (t - acc) - y
+
+    def kernel(parts_ref, out_ref):
+        m, row, group = (pl.program_id(a) for a in range(3))
+        lanes = pl.ds(group * KAHAN_LANES, KAHAN_LANES)
+
+        def block(b, carry):
+            slabs = [parts_ref[m, b * KAHAN_UNROLL + u, row, lanes]
+                     for u in range(KAHAN_UNROLL)]
+            for slab in slabs:
+                carry = kahan(slab, carry)
+            return carry
+
+        def single(t, carry):
+            return kahan(parts_ref[m, t, row, lanes], carry)
+
+        zero = jnp.zeros((KAHAN_LANES,), jnp.float32)
+        n_blocks = n_tiles // KAHAN_UNROLL
+        carry = jax.lax.fori_loop(0, n_blocks, block, (zero, zero))
+        acc, _ = jax.lax.fori_loop(n_blocks * KAHAN_UNROLL, n_tiles, single,
+                                   carry)
+        out_ref[m, row, lanes] = acc
+
+    return kernel
+
+
+def kahan_tiles_kernel(parts, interpret: bool = False):
+    """`kahan_tiles` for stacked moments ``(n_out, n_tiles, 8, 128)`` as one
+    Triton launch, one program per (moment, slab row, lane group).
+
+    The path kernels write one slab per tile (their programs run in
+    parallel and in no fixed order); this pass sums them with the same
+    operations in the same order as `kahan_tiles`, without a device loop
+    of ``n_tiles`` XLA steps.  Returns ``(n_out, 8, 128)``.
+    """
+    n_out, n_tiles = parts.shape[:2]
+    return triton_call(
+        _make_kahan_kernel(n_tiles),
+        jax.ShapeDtypeStruct((n_out, SUBLANES, LANES), jnp.float32),
+        grid=(n_out, SUBLANES, LANES // KAHAN_LANES), name="mc_kahan_tiles",
+        num_warps=KAHAN_LANES // 32, interpret=interpret)(parts)
+
+
+def tile_path_ids(first_row, shape=(SUBLANES, LANES)):
+    """Row-major uint32 path ids of a ``shape`` block starting at a row."""
+    flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
+            + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
+    return jnp.asarray(first_row, jnp.uint32) * jnp.uint32(LANES) + flat
+
+
 def xla_moment_scan(tile_fn, n_paths: int, tile_rows: int, n_out: int,
                     offset=0, bound=None):
     """Scan path tiles and Kahan-accumulate n_out (8,128) moment slabs.
 
-    The ONE tile-iteration loop every XLA engine dual shares (GBM, Heston,
+    The ONE tile-iteration loop every XLA engine shares (GBM, Heston,
     basket, MLMC): builds global path ids and the validity mask, calls
     ``tile_fn(ids, valid) -> [v_0 .. v_{n_out-1}]`` (each (tile_rows, 128)),
-    folds each to (8,128), and Kahan-accumulates across tiles in the same
-    order as the Pallas kernels' in-VMEM accumulators.  Returns a tuple of
-    n_out (8,128) f32 arrays.
+    folds each to (8,128), and Kahan-accumulates across tiles in tile
+    order.  Returns a tuple of n_out (8,128) f32 arrays.
     """
     per_tile = tile_rows * LANES
     n_tiles = cdiv(n_paths, per_tile)
-    shape = (tile_rows, LANES)
-    flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-            + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
+    flat = tile_path_ids(0, (tile_rows, LANES))
     offset = jnp.asarray(offset, jnp.uint32)
     bound = (offset + jnp.uint32(n_paths) if bound is None
              else jnp.asarray(bound, jnp.uint32))
@@ -104,62 +173,46 @@ def xla_moment_scan(tile_fn, n_paths: int, tile_rows: int, n_out: int,
     return tuple(acc[m] for m in range(n_out))
 
 
-def fused_moment_partials(tile, cfg, key, pv, path_offset=0,
-                          n_valid=None, engine="pallas", interpret=None):
-    """(sum, sumsq) (8,128) Kahan slabs of a per-path payoff — the ONE
-    fused-engine scaffolding every packed-params terminal pricer shares
-    (round-4 rates swaption kernels; see models/hullwhite.py).
+def resolve_engine(engine, interpret: bool = False) -> str:
+    """The engine a pricer runs: ``None`` picks by platform.
 
-    ``tile(pv_ref, ids, valid, k0, k1, bitcast) -> (tile_rows, 128)``
-    computes the masked payoff for one tile; it must read ONLY from the
-    packed f32 vector ``pv`` (SMEM ref inside the kernel, plain array in
-    the dual), so the SAME function body serves both engines and the
-    bitwise pallas==xla contract holds by construction.
+    ``"pallas"`` (the Triton-route kernels) on a GPU backend, ``"xla"``
+    elsewhere.  An explicit ``"pallas"`` off the GPU needs
+    ``interpret=True``: the kernels compile only for NVIDIA GPUs.
     """
-    offset = jnp.asarray(path_offset, jnp.uint32)
-    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    if engine == "pallas":
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
+    backend = jax.default_backend()
+    if engine is None:
+        engine = "pallas" if backend == "gpu" else "xla"
+    if engine not in ("pallas", "xla"):
+        raise ValueError(f"unknown engine {engine!r}; use 'pallas' or 'xla'")
+    if engine == "pallas" and not interpret and backend != "gpu":
+        raise ValueError(
+            f"engine='pallas' compiles Triton kernels for an NVIDIA GPU; "
+            f"the {backend!r} backend needs interpret=True or engine='xla'")
+    return engine
 
-        from mc_tpu.ops import path_kernels as pk
 
-        def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref,
-                   comp_ref):
-            i = pl.program_id(0)
-            shape = (cfg.tile_rows, LANES)
-            base = jnp.uint32(i * cfg.paths_per_tile)
-            flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0)
-                    * LANES
-                    + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-            ids = meta_ref[0] + base + flat
-            valid = ids < meta_ref[1]
-            pay = tile(params_ref, ids, valid, key_ref[0], key_ref[1],
-                       pltpu.bitcast)
-            pk._accumulate_moments((sum_ref, sq_ref), comp_ref,
-                                   [pay, pay * pay], i, cfg.tile_rows)
+def triton_call(kernel, out_shape, *, grid, name: str, interpret: bool,
+                num_warps: int = NUM_WARPS):
+    """``pallas_call`` on the Triton route with whole-array operands.
 
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
+    Every operand and result is a whole-array reference: kernels index
+    (8, 128) chunks themselves, so array shapes need not be powers of two.
+    """
+    whole = pl.BlockSpec(memory_space=pl.ANY)
+
+    def call(*args):
         return pl.pallas_call(
             kernel,
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES),
-                                       jnp.float32)],
+            grid=grid,
+            in_specs=[whole] * len(args),
+            out_specs=jax.tree_util.tree_map(lambda _: whole, out_shape),
+            out_shape=out_shape,
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                                 num_stages=1),
             interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), pv, jnp.stack([offset, bound]))
-    k0 = jnp.asarray(key[0], jnp.uint32)
-    k1 = jnp.asarray(key[1], jnp.uint32)
+            name=name,
+        )(*args)
 
-    def tile_fn(ids, valid):
-        pay = tile(pv, ids, valid, k0, k1,
-                   jax.lax.bitcast_convert_type)
-        return [pay, pay * pay]
-
-    return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2,
-                           offset=offset, bound=bound)
+    return call

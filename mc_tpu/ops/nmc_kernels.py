@@ -3,24 +3,18 @@
 The reference prices the conditional expected payoff at EVERY point
 ``(outer path i, step t)`` of every outer bullet trajectory by launching
 ``N_PATHS_INNER`` inner trajectories that resume from the stored state
-``(S_t, count_t)``, with three hand-written schedulers (one-block-per-point,
-fused single kernel, task-decomposed).  TPU-native re-design:
+``(S_t, count_t)``.  Here:
 
-* a *point tile* is an (8, 128) VMEM block of outer paths at one step —
-  all 1024 lanes share the same ``remaining_steps``, so the inner step loop
-  is uniform (the reference needed per-block ``remaining_steps`` and warp
-  divergence; here divergence cannot exist);
-* **fused strategy** (C11 equivalent): one kernel simulates the outer path
-  tile, parks the whole per-step state history in VMEM scratch
-  (``(n_steps, 8, 128)`` x2), then sweeps ``t`` x ``N_INNER`` inner
-  simulations without the state grid ever touching HBM;
-* **grid strategy** (C10 equivalent): a second kernel consumes the HBM
-  state grids produced by `simulate_trajectories_kernel` — for when the
-  trajectories must persist anyway;
-* the reference's task-decomposed load balancing (C12) is subsumed by
-  sharding the outer-path axis over the device mesh (parallel/nmc);
-  within a chip the Pallas grid is sequential, so there is nothing to
-  balance.
+* the outer trajectories are materialized to HBM first
+  (`path_kernels.simulate_trajectories_kernel`, the reference's C9 pass,
+  ``trajectories.cuh:273-351``);
+* the inner kernel (C10) is a parallel ``(n_steps, n_tiles)`` grid: each
+  program resumes one (step, path-tile) block of points, walking it in
+  (8, 128) chunks.  All lanes of a program share ``remaining_steps``, so
+  the inner step loop is uniform — no divergence;
+* the reference's task-decomposed load balancing (C12) is left to the GPU's
+  block scheduler within a device, and to sharding the outer-path axis over
+  the device mesh across devices (parallel/nmc_sharded.py).
 
 Inner RNG: an independent threefry stream (derive_key(seed, STREAM_INNER) —
 the reference's seed 1235, ``wrappers.cuh:163``).  The counter for inner
@@ -28,8 +22,8 @@ draw pair ``q`` of inner path ``m`` resuming at step ``t`` of outer path
 ``i`` is ``(i, (t * n_inner + m) * pair_cap + q)`` — unique, static-shaped,
 and independent of tiling/sharding.
 
-Both engines (Pallas kernel and XLA dual in mc_tpu/nmc.py) call the same
-`_nmc_point_tile` tile function, so they agree bit-for-bit.
+The kernel and the XLA engine in mc_tpu/nmc.py call the same
+`_nmc_point_tile` function, so they draw the same numbers.
 """
 
 from __future__ import annotations
@@ -40,16 +34,14 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from mc_tpu import rng
-from mc_tpu.ops._pallas import LANES, SUBLANES, cdiv, use_interpret
-from mc_tpu.ops.path_kernels import (_accumulate_moments,
-                                     _tile_normals_threefry, unpack_params)
+from mc_tpu.ops._pallas import (LANES, SUBLANES, cdiv, tile_path_ids,
+                                triton_call)
+from mc_tpu.ops.path_kernels import unpack_params
 from mc_tpu.ops.payoffs import PathPayoff
 
-__all__ = ["NMCConfig", "nmc_fused_kernel", "nmc_inner_kernel",
-           "_nmc_point_tile"]
+__all__ = ["NMCConfig", "nmc_inner_kernel", "_nmc_point_tile"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,21 +51,10 @@ class NMCConfig:
     n_inner: int              # inner paths per point (N_PATHS_INNER)
     tile_rows: int = 8
     discount: str = "full"    # "full": e^{-rT} like nmc.cuh:100; "remaining": e^{-r(T-t)}
-    # "threefry13" (default): counter-based inner streams, bitwise XLA
-    # dual.  "hw": the TPU hardware PRNG drives the INNER sweep (outer
-    # trajectories stay threefry) — the inner loop is threefry-bound, so
-    # this trades the bitwise dual for throughput (opt-in, like the path
-    # kernels' rng_source="hw").
-    rng_source: str = "threefry13"
 
     def __post_init__(self):
         if self.tile_rows % 8 or self.tile_rows < 8:
             raise ValueError("tile_rows must be a positive multiple of 8")
-        if self.rng_source not in ("threefry13", "hw"):
-            raise ValueError(f"unknown rng_source {self.rng_source!r}; "
-                             "NMC supports 'threefry13' or 'hw'")
-        if self.rng_source == "hw":
-            return  # stateful streams: no counter space to exhaust
         # Inner draw counter = ((j+1)*n_inner + m)*pair_cap + q in uint32;
         # it must not wrap or inner streams would silently collide.
         span = self.n_steps * self.n_inner * ((self.n_steps + 1) // 2)
@@ -129,8 +110,7 @@ def _simulate_resumed(payoff: PathPayoff, p, s_t, state_t, remaining,
 
 
 def _nmc_point_tile(payoff: PathPayoff, cfg: NMCConfig, p, ki0, ki1, ids,
-                    j, s_t, state_t,
-                    bitcast=jax.lax.bitcast_convert_type):
+                    j, s_t, state_t):
     """Inner-MC estimate for one point tile: mean payoff over n_inner paths.
 
     ``j`` is the (traced) step index of the stored state (state after step
@@ -145,24 +125,15 @@ def _nmc_point_tile(payoff: PathPayoff, cfg: NMCConfig, p, ki0, ki1, ids,
     t_base = ((jnp.asarray(j, jnp.uint32) + jnp.uint32(1))
               * jnp.uint32(cfg.n_inner))  # state is after step j+1
 
-    hw = cfg.rng_source == "hw"
-    if hw:
-        from mc_tpu.ops.path_kernels import _tile_normals_hw
-
     def inner(m, carry):
         acc, comp = carry
         c1_base = ((t_base + jnp.asarray(m, jnp.uint32))
                    * jnp.uint32(cfg.pair_cap))
 
-        if hw:
-            # stateful streams: the caller seeded once per program with a
-            # unique (tile[, step]) tag; draws just stream on
-            draw_pair = lambda q: _tile_normals_hw(ids.shape)
-        else:
-            def draw_pair(q):
-                c1 = jnp.full(ids.shape, 0, jnp.uint32) + c1_base \
-                    + jnp.asarray(q, jnp.uint32)
-                return rng.normal_pair(ki0, ki1, ids, c1, bitcast=bitcast)
+        def draw_pair(q):
+            c1 = jnp.full(ids.shape, 0, jnp.uint32) + c1_base \
+                + jnp.asarray(q, jnp.uint32)
+            return rng.normal_pair(ki0, ki1, ids, c1)
 
         pay = _simulate_resumed(payoff, p, s_t, state_t, remaining,
                                 draw_pair)
@@ -186,150 +157,30 @@ def _discount_factor(cfg: NMCConfig, p, j):
     return jnp.exp(-p.r * (p.t - t_j))
 
 
-def _make_fused_kernel(payoff: PathPayoff, cfg: NMCConfig):
-    """Phase A: outer tile simulation into VMEM scratch; Phase B: per-step
-    inner sweeps.  The C11 'one kernel' strategy with zero HBM state."""
-    assert payoff.n_state <= 1, "NMC kernels carry one state grid"
-
-    def kernel(ko_ref, ki_ref, params_ref, meta_ref, surf_ref, osum_ref,
-               osq_ref, s_hist, c_hist, comp_ref):
-        p = unpack_params(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        ko0, ko1 = ko_ref[0], ko_ref[1]
-        ki0, ki1 = ki_ref[0], ki_ref[1]
-
-        # --- Phase A: outer trajectory, history parked in VMEM scratch.
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        state0 = payoff.init(p, jnp.zeros_like(s0))
-
-        def store(j, s, state):
-            s_hist[j] = s
-            c_hist[j] = state[0] if payoff.n_state else jnp.zeros_like(s)
-
-        def one_step(w, state, z):
-            w = w + (p.drift_dt + p.vol_dt * z)
-            s = s0 * jnp.exp(w)  # log-space: one exp rounding per S_t
-            return w, s, payoff.update(state, s, p)
-
-        def outer_body(m, carry):
-            w, s, state = carry
-            z0, z1 = _tile_normals_threefry(ko0, ko1, ids, m)
-            w, s, state = one_step(w, state, z0)
-            store(2 * m, s, state)
-            w, s, state = one_step(w, state, z1)
-            store(2 * m + 1, s, state)
-            return (w, s, state)
-
-        w, s_t, state = jax.lax.fori_loop(
-            0, cfg.n_steps // 2, outer_body,
-            (jnp.zeros_like(s0), s0, state0))
-        if cfg.n_steps % 2:
-            z0, _ = _tile_normals_threefry(ko0, ko1, ids, cfg.n_steps // 2)
-            w, s_t, state = one_step(w, state, z0)
-            store(cfg.n_steps - 1, s_t, state)
-
-        pay = jnp.where(valid, payoff.terminal(state, s_t, p), 0.0)
-        _accumulate_moments((osum_ref, osq_ref), comp_ref, [pay, pay * pay],
-                            i, cfg.tile_rows)
-
-        # --- Phase B: inner conditional-expectation sweep over steps.
-        if cfg.rng_source == "hw":
-            # seed ONCE per program with a (global-tile)-unique tag; the
-            # stateful stream then covers every (step, inner path) draw
-            tile_tag = ((meta_ref[0] // jnp.uint32(cfg.paths_per_tile)
-                         + jnp.uint32(i)) * jnp.uint32(0x9E3779B9))
-            pltpu.prng_seed(ki0 ^ tile_tag, ki1)
-
-        def step_body(j, _):
-            s_j = s_hist[j]
-            st_j = (c_hist[j],) if payoff.n_state else ()
-            inner_sum = _nmc_point_tile(payoff, cfg, p, ki0, ki1, ids, j,
-                                        s_j, st_j, bitcast=pltpu.bitcast)
-            v = inner_sum * (1.0 / cfg.n_inner) * _discount_factor(cfg, p, j)
-            surf_ref[j] = jnp.where(valid, v, 0.0)
-            return 0
-
-        jax.lax.fori_loop(0, cfg.n_steps, step_body, 0)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "interpret"))
-def nmc_fused_kernel(payoff: PathPayoff, cfg: NMCConfig, key_outer,
-                     key_inner, params, path_offset=0, n_valid=None,
-                     interpret=None):
-    """Fused NMC: returns (surface, outer_sum_acc, outer_sq_acc).
-
-    surface: (n_steps, n_tiles*tile_rows, 128) f32 — the per-point price
-    grid (d_option_prices of wrappers.cuh:139, step-major).
-    """
-    if interpret is None:
-        interpret = use_interpret()
-    rows = cfg.n_tiles * cfg.tile_rows
-    offset = jnp.asarray(path_offset, jnp.uint32)
-    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    grid_spec = pl.BlockSpec((cfg.n_steps, cfg.tile_rows, LANES),
-                             lambda i: (0, i, 0),
-                             memory_space=pltpu.VMEM)
-    acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _make_fused_kernel(payoff, cfg),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 4,
-        out_specs=[grid_spec, acc_spec, acc_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((cfg.n_steps, cfg.tile_rows, LANES), jnp.float32),
-            pltpu.VMEM((cfg.n_steps, cfg.tile_rows, LANES), jnp.float32),
-            pltpu.VMEM((2, SUBLANES, LANES), jnp.float32),
-        ],
-        interpret=interpret,
-    )(jnp.asarray(key_outer, jnp.uint32),
-      jnp.asarray(key_inner, jnp.uint32), params,
-      jnp.stack([offset, bound]))
-
-
 def _make_inner_kernel(payoff: PathPayoff, cfg: NMCConfig):
-    """Grid strategy (C10): consume HBM state grids, one (step, path-tile)
-    block per grid step."""
+    """Inner pass (C10): consume the HBM state grids, one (step, path-tile)
+    block per program."""
+    n_chunks = cfg.tile_rows // SUBLANES
 
     def kernel(ki_ref, params_ref, meta_ref, s_ref, c_ref, surf_ref):
         p = unpack_params(params_ref)
         t_idx = pl.program_id(0)
         i = pl.program_id(1)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        ki0, ki1 = ki_ref[0], ki_ref[1]
 
-        if cfg.rng_source == "hw":
-            # per-(step, tile) program: mix both grid axes into the tag
-            tag = (((meta_ref[0] // jnp.uint32(cfg.paths_per_tile)
-                     + jnp.uint32(i)) * jnp.uint32(0x9E3779B9))
-                   ^ (jnp.uint32(t_idx) * jnp.uint32(0x85EBCA6B)))
-            pltpu.prng_seed(ki0 ^ tag, ki1)
+        def chunk(c, carry):
+            row0 = i * cfg.tile_rows + c * SUBLANES
+            rows = pl.ds(row0, SUBLANES)
+            ids = meta_ref[0] + tile_path_ids(row0)
+            s_j = s_ref[t_idx, rows, :]
+            st_j = (c_ref[t_idx, rows, :],) if payoff.n_state else ()
+            inner_sum = _nmc_point_tile(payoff, cfg, p, ki_ref[0], ki_ref[1],
+                                        ids, t_idx, s_j, st_j)
+            v = inner_sum * (1.0 / cfg.n_inner) * _discount_factor(
+                cfg, p, t_idx)
+            surf_ref[t_idx, rows, :] = jnp.where(ids < meta_ref[1], v, 0.0)
+            return carry
 
-        s_j = s_ref[0]
-        st_j = (c_ref[0],) if payoff.n_state else ()
-        inner_sum = _nmc_point_tile(payoff, cfg, p, ki0, ki1, ids, t_idx,
-                                    s_j, st_j, bitcast=pltpu.bitcast)
-        v = inner_sum * (1.0 / cfg.n_inner) * _discount_factor(cfg, p, t_idx)
-        surf_ref[0] = jnp.where(valid, v, 0.0)
+        jax.lax.fori_loop(0, n_chunks, chunk, 0)
 
     return kernel
 
@@ -337,25 +188,15 @@ def _make_inner_kernel(payoff: PathPayoff, cfg: NMCConfig):
 @functools.partial(jax.jit, static_argnames=("payoff", "cfg", "interpret"))
 def nmc_inner_kernel(payoff: PathPayoff, cfg: NMCConfig, key_inner, params,
                      s_grid, c_grid, path_offset=0, n_valid=None,
-                     interpret=None):
+                     interpret: bool = False):
     """Two-stage NMC inner pass over materialized (s, state) HBM grids."""
-    if interpret is None:
-        interpret = use_interpret()
     rows = cfg.n_tiles * cfg.tile_rows
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    tile3 = pl.BlockSpec((1, cfg.tile_rows, LANES),
-                         lambda t, i: (t, i, 0),
-                         memory_space=pltpu.VMEM)
-    return pl.pallas_call(
+    return triton_call(
         _make_inner_kernel(payoff, cfg),
-        grid=(cfg.n_steps, cfg.n_tiles),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3
-        + [tile3, tile3],
-        out_specs=tile3,
-        out_shape=jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES),
-                                       jnp.float32),
-        interpret=interpret,
-    )(jnp.asarray(key_inner, jnp.uint32), params,
-      jnp.stack([offset, bound]), s_grid, c_grid)
+        jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
+        grid=(cfg.n_steps, cfg.n_tiles), name="mc_nmc_inner",
+        interpret=interpret)(jnp.asarray(key_inner, jnp.uint32), params,
+                             jnp.stack([offset, bound]), s_grid, c_grid)

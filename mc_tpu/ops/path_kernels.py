@@ -1,29 +1,28 @@
-"""Fused Pallas path-simulation kernels.
+"""Fused path-simulation kernels for NVIDIA GPUs (Pallas, Triton route).
 
-TPU-native re-design of the reference's simulation kernels
-(``inc/trajectories.cuh``, SURVEY.md C7/C8):
+Re-design of the reference's simulation kernels (``inc/trajectories.cuh``,
+SURVEY.md C7/C8):
 
 * reference: one CUDA thread = one path; per-thread curand state pulled to
-  registers; Euler loop; shared-memory tree reduce + warp shuffle; leader
-  ``atomicAdd`` to global memory.
-* here: one grid step = one VMEM tile of ``tile_rows x 128`` paths; normals
-  are generated *inside* the kernel from counter-based threefry (no RNG
-  state in HBM, nothing but the partial sums ever leaves the chip); the
-  step loop is a ``fori_loop`` with O(1) VMEM state; the tile reduce is a
-  plain ``jnp.sum`` over sublanes; the grid-level combine is per-tile lane
-  partials finished in f64 outside (TPU has no atomics and needs none —
-  the grid is sequential per core).
+  registers; Euler loop in registers; shared-memory tree reduce + warp
+  shuffle; per-block partials ``g_odata[blockIdx.x]`` finished on the host.
+* here: one Triton program = one tile of ``tile_rows x 128`` paths, walked
+  in (8, 128) chunks; normals are generated *inside* the kernel from
+  counter-based threefry (no RNG state in HBM); the step loop is a
+  ``fori_loop`` over values held in registers; each program folds its
+  chunks into one (8, 128) slab per moment and writes it to its own row of
+  an ``(n_tiles, 8, 128)`` output — the reference's per-block-partials
+  mode.  `kahan_tiles` then sums the rows in tile order, which is the XLA
+  engine's summation order.  No atomics: their order changes from run to
+  run.
 
 One generic kernel serves every payoff in the registry because the payoff's
 ``init/update/terminal`` are inlined at trace time (the reference needed a
 hand-written kernel per payoff).  Variance-reduction hooks (antithetic
 pairing, control-variate moment accumulators) are fused into the same pass.
 
-RNG sources:
-  * ``threefry`` (default): counter-based, bit-identical for any tiling,
-    sharding, or backend; draw (path i, step j) = f(key, i, j).
-  * ``hw``: the TPU hardware PRNG (``pltpu.prng_seed`` / ``prng_random_bits``),
-    seeded per (key, tile) — faster, TPU-only, not tiling-invariant.
+Normal draws are counter-based threefry: draw (path i, step j) = f(key, i,
+j), bit-identical for any tiling, sharding or backend.
 """
 
 from __future__ import annotations
@@ -36,21 +35,21 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from mc_tpu import rng
 from mc_tpu.ops._pallas import (LANES, SUBLANES, cdiv, fold_to_sublanes,
-                                kahan_xla_update, round_up, use_interpret,
-                                xla_moment_scan)
+                                kahan_tiles_kernel, kahan_xla_update,
+                                tile_path_ids, triton_call, xla_moment_scan)
 from mc_tpu.ops.payoffs import PathPayoff
 
 __all__ = ["KernelConfig", "PARAM_FIELDS", "pack_params", "simulate_partials",
-           "simulate_trajectories_kernel"]
+           "simulate_trajectories_kernel", "terminal_pair_partials",
+           "check_rng_source"]
 
 
 # ---------------------------------------------------------------------------
-# Parameter packing: the TPU analogue of __constant__ OptionData
-# (trajectories.cuh:12) is a small f32 vector prefetched into SMEM.
+# Parameter packing: the analogue of __constant__ OptionData
+# (trajectories.cuh:12) is a small f32 vector each program reads as scalars.
 # ---------------------------------------------------------------------------
 
 PARAM_FIELDS = (
@@ -83,6 +82,28 @@ def unpack_params(params_ref) -> SimpleNamespace:
         **{f: params_ref[i] for i, f in enumerate(PARAM_FIELDS)})
 
 
+# Default tile height per engine.  The kernel walks a tile in (8, 128)
+# chunks inside one program, so the tile sets the number of programs and of
+# partial slabs: 32 rows (4096 paths) was fastest end to end for the
+# 1M-path European and bullet calls on an H100 (CHANGES.md).  The XLA
+# engine iterates tiles in a device loop, so it wants fewer, larger tiles.
+DEFAULT_TILE_ROWS = {"pallas": 32, "xla": 128}
+
+
+def default_tile_rows(engine: str) -> int:
+    return DEFAULT_TILE_ROWS[engine]
+
+
+RNG_SOURCES = ("threefry13", "threefry")
+
+
+def check_rng_source(rng_source: str):
+    """Validate a normal-draw stream name."""
+    if rng_source not in RNG_SOURCES:
+        raise ValueError(f"unknown rng_source {rng_source!r}; use "
+                         "'threefry13' or 'threefry' (20 rounds)")
+
+
 # ---------------------------------------------------------------------------
 # Kernel configuration (static)
 # ---------------------------------------------------------------------------
@@ -95,10 +116,9 @@ class KernelConfig:
     tile_rows: int = 128          # paths per tile = tile_rows * 128
     antithetic: bool = False
     with_cv: bool = False         # emit control-variate moment partials
-    rng_source: str = "threefry13"  # "threefry13" | "threefry"(20) | "hw"
+    rng_source: str = "threefry13"  # "threefry13" | "threefry"(20)
     method: str = "euler"         # "euler" | "terminal"
     start_step: int = 0           # resume support (trajectories.cuh:116-117 Tk)
-    use_cost_estimate: bool = True
     # Importance sampling: shift the terminal log-price by `is_shift`
     # standard deviations (of sigma*sqrt(T)); payoffs are re-weighted by
     # the exact likelihood ratio so the estimator stays unbiased.
@@ -107,12 +127,13 @@ class KernelConfig:
     def __post_init__(self):
         if self.tile_rows % 8 or self.tile_rows < 8:
             raise ValueError("tile_rows must be a positive multiple of 8 "
-                             f"(f32 sublane tiling); got {self.tile_rows}")
+                             f"(the (8, 128) slab); got {self.tile_rows}")
+        check_rng_source(self.rng_source)
         if self.method not in ("euler", "terminal"):
             # "terminal_pair" has its own kernel + entry validation in
             # engines.price; reaching here means a sibling entry point
-            # (sharded/chunked/book/ladder) would silently run the euler
-            # loop instead — fail loudly.
+            # (sharded/chunked) would silently run the euler loop
+            # instead — fail loudly.
             raise ValueError(
                 f"unknown method {self.method!r} for the step-loop "
                 "kernels; use 'euler' or 'terminal' "
@@ -142,62 +163,11 @@ def _tile_normals_threefry(key0, key1, ids, pair_idx,
     """Two N(0,1) tiles for counter (path id, pair index) — tiling-invariant.
 
     Normal draw j of path i is half ``j % 2`` of pair ``j // 2`` — the same
-    convention as `rng.normals`, so kernels, XLA duals, and host
+    convention as `rng.normals`, so kernels, XLA engines, and host
     recomputations all see one stream.
     """
     c1 = jnp.full(ids.shape, 0, jnp.uint32) + jnp.asarray(pair_idx, jnp.uint32)
-    return rng.normal_pair(key0, key1, ids, c1, bitcast=pltpu.bitcast,
-                           rounds=rounds)
-
-
-def _tile_normals_hw(shape):
-    """Two tiles of N(0,1) from the hardware PRNG (seeded once per tile)."""
-    b0 = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
-    b1 = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
-    u1 = rng.bits_to_unit(b0, pltpu.bitcast)
-    u2 = rng.bits_to_unit(b1, pltpu.bitcast)
-    rad = jnp.sqrt(jnp.float32(-2.0) * jnp.log1p(-u1))
-    theta = jnp.float32(rng.TWO_PI) * u2
-    return rad * jnp.cos(theta), rad * jnp.sin(theta)
-
-
-def hw_model_draws(shape, k0, k1, hw_tag):
-    """(draw_pair, draw_unit) for a model-family tile from the Mosaic
-    hardware PRNG — the analogue of the reference's per-thread
-    curandState draw (trajectories.cuh:74-75, SURVEY C3 mode (a)).
-
-    Seeds once per tile from (key ^ golden-ratio-mixed tile tag), then
-    streams raw bits: drops the 13-round threefry from the per-step
-    budget entirely (measured ~+29% on the GBM step kernels).  STATEFUL:
-    the stream is NOT tiling-invariant and cannot be replayed, so the
-    engines gate hw to pallas without antithetic (`check_hw_rng`).
-    draw indices are accepted and IGNORED — every call yields fresh bits.
-    """
-    pltpu.prng_seed(k0 ^ (hw_tag * jnp.uint32(0x9E3779B9)), k1)
-
-    def draw_pair(m):
-        return _tile_normals_hw(shape)
-
-    def draw_unit(c):
-        b = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
-        return rng.bits_to_unit(b, pltpu.bitcast)
-
-    return draw_pair, draw_unit
-
-
-def check_hw_rng(rng_source: str, engine: str, antithetic: bool = False):
-    """Shared validation for the opt-in hardware-PRNG stream."""
-    if rng_source not in ("threefry13", "threefry", "hw"):
-        raise ValueError(f"unknown rng_source {rng_source!r}; use "
-                         "'threefry13', 'threefry' (20 rounds) or 'hw'")
-    if rng_source == "hw":
-        if engine != "pallas":
-            raise ValueError("rng_source='hw' requires engine='pallas' "
-                             "(the hardware PRNG is a Mosaic primitive)")
-        if antithetic:
-            raise ValueError(
-                "rng_source='hw' cannot replay draws for the antithetic "
-                "leg (stateful stream); use the threefry sources")
+    return rng.normal_pair(key0, key1, ids, c1, rounds=rounds)
 
 
 def _simulate_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
@@ -227,10 +197,8 @@ def _simulate_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
     theta = shift / jnp.float32(math.sqrt(cfg.n_steps))
 
     # Log-space accumulation: w_t = sum of log-increments, S_t = S0 e^{w_t}.
-    # The TPU's fast f32 exp has a systematic ~-1e-6 relative bias (up to
-    # ~60 ulp); the multiplicative form S *= exp(inc) compounds it into a
-    # ~1e-4 pricing bias over 100 steps, while here each S_t carries exactly
-    # ONE exp rounding (verified vs CPU in tests/test_engines.py).
+    # Each S_t carries exactly ONE exp rounding; the multiplicative form
+    # S *= exp(inc) would compound the per-call exp error over the steps.
     w = jnp.zeros_like(s0)
     s, state = s0, state0
 
@@ -288,41 +256,50 @@ def _payoff_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair,
     return pay, x
 
 
-# Shared with the XLA duals (ops/_pallas.py) — one definition of the
-# summation grouping keeps the bit-identical-engines invariant safe.
-_fold_to_sublanes = fold_to_sublanes
+def path_moments(payoff: PathPayoff, cfg: KernelConfig, p, k0, k1, ids,
+                 valid, s0, state_init=None):
+    """Per-path moment tiles ``[pay, pay^2(, x, x^2, pay*x)]`` for a block
+    of path ids — the one body the kernel and the XLA engine share."""
+    def draw_pair(m):
+        return _tile_normals_threefry(k0, k1, ids, m, rounds=cfg.rng_rounds)
+
+    pay, x = _payoff_leg(payoff, cfg, p, s0, draw_pair, state_init)
+    if cfg.antithetic:
+        draw_neg = lambda m: tuple(-z for z in draw_pair(m))
+        pay_neg, x_neg = _payoff_leg(payoff, cfg, p, s0, draw_neg, state_init)
+        pay = 0.5 * (pay + pay_neg)
+        x = 0.5 * (x + x_neg)
+    pay = jnp.where(valid, pay, 0.0)
+    vals = [pay, pay * pay]
+    if cfg.with_cv:
+        # Control variate X = terminal price (pair-mean if antithetic):
+        # E[X] = S0 * exp(rT) exactly under the log-Euler scheme.
+        x = jnp.where(valid, x, 0.0)
+        vals += [x, x * x, pay * x]
+    return vals
 
 
-def _accumulate_moments(outs, comp_ref, vals, i, tile_rows: int):
-    """Kahan-accumulate per-tile moment sums into (8,128) VMEM accumulators.
+def _partials_shape(n_out: int, n_tiles: int):
+    """Per-tile moment slabs, stacked moment-major for `kahan_tiles_kernel`."""
+    return jax.ShapeDtypeStruct((n_out, n_tiles, SUBLANES, LANES),
+                                jnp.float32)
 
-    The TPU grid is sequential per core, so revisiting the same output block
-    each grid step is the race-free replacement for the reference's
-    ``atomicAdd`` grid combine (``trajectories.cuh:111``).  Kahan compensation
-    (one (8,128) scratch slab per moment) keeps 1e9-path sums exact to ~eps —
-    the role fp64 accumulators played in the original plan, without paying
-    for TPU-emulated f64 in the hot loop.
-    """
 
-    @pl.when(i == 0)
-    def _init():
-        for o in outs:
-            o[:] = jnp.zeros_like(o)
-        comp_ref[:] = jnp.zeros_like(comp_ref)
+def _chunked_tile(n_chunks: int, chunk_fn, n_out: int):
+    """Fold a program's (8, 128) chunks in row order: the in-kernel form
+    of `fold_to_sublanes`."""
+    def body(c, acc):
+        return tuple(a + v for a, v in zip(acc, chunk_fn(c)))
 
-    for m, v in enumerate(vals):
-        p8 = _fold_to_sublanes(v, tile_rows)
-        acc = outs[m][:]
-        y = p8 - comp_ref[m]
-        t = acc + y
-        comp_ref[m] = (t - acc) - y
-        outs[m][:] = t
+    zero = jnp.zeros((SUBLANES, LANES), jnp.float32)
+    return jax.lax.fori_loop(0, n_chunks, body, (zero,) * n_out)
 
 
 def _make_sim_kernel(payoff: PathPayoff, cfg: KernelConfig, with_resume: bool):
     """Build the fused simulate+reduce kernel body."""
 
     n_out = 5 if cfg.with_cv else 2
+    n_chunks = cfg.tile_rows // SUBLANES
 
     def kernel(*refs):
         key_ref, params_ref, meta_ref = refs[0], refs[1], refs[2]
@@ -330,61 +307,32 @@ def _make_sim_kernel(payoff: PathPayoff, cfg: KernelConfig, with_resume: bool):
         if with_resume:
             s_init_ref = refs[idx]; idx += 1
             state_refs = refs[idx: idx + payoff.n_state]; idx += payoff.n_state
-        outs = refs[idx: idx + n_out]
-        comp_ref = refs[idx + n_out]  # Kahan compensation scratch
+        out_ref = refs[idx]
 
         p = unpack_params(params_ref)
         i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
+        k0, k1 = key_ref[0], key_ref[1]
 
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        local_ids = base + flat
-        # Global path id = shard offset + local id: RNG counters stay
-        # identical no matter how paths are sharded across chips.  The
-        # validity mask is against the traced GLOBAL bound, so a shard whose
-        # rounded-up local range overhangs the total contributes zeros.
-        ids = meta_ref[0] + local_ids
-        valid = ids < meta_ref[1]
+        def chunk(c):
+            row0 = i * cfg.tile_rows + c * SUBLANES
+            # Global path id = shard offset + local id: RNG counters stay
+            # identical no matter how paths are sharded across devices.
+            # The validity mask is against the traced GLOBAL bound, so a
+            # shard whose rounded-up range overhangs contributes zeros.
+            ids = meta_ref[0] + tile_path_ids(row0)
+            valid = ids < meta_ref[1]
+            if with_resume:
+                rows = pl.ds(row0, SUBLANES)
+                s0 = s_init_ref[rows, :]
+                state_init = tuple(r[rows, :] for r in state_refs)
+            else:
+                s0 = jnp.full((SUBLANES, LANES), p.s0, jnp.float32)
+                state_init = None
+            return path_moments(payoff, cfg, p, k0, k1, ids, valid, s0,
+                                state_init)
 
-        k0 = key_ref[0]
-        k1 = key_ref[1]
-        if cfg.rng_source == "hw":
-            # Mosaic accepts at most 2 seed words: golden-ratio-mix the tile
-            # index into the first so every (key, tile) gets its own stream.
-            tile_tag = (meta_ref[0] + jnp.uint32(i)) * jnp.uint32(0x9E3779B9)
-            pltpu.prng_seed(k0 ^ tile_tag, k1)
-            draw_pair = lambda m: _tile_normals_hw(shape)
-        else:
-            draw_pair = lambda m: _tile_normals_threefry(
-                k0, k1, ids, m, rounds=cfg.rng_rounds)
-
-        if with_resume:
-            s0 = s_init_ref[:]
-            state_init = tuple(r[:] for r in state_refs)
-        else:
-            s0 = jnp.full(shape, p.s0, jnp.float32)
-            state_init = None
-
-        pay, x = _payoff_leg(payoff, cfg, p, s0, draw_pair, state_init)
-        if cfg.antithetic:
-            # NOTE: for rng_source="hw" the PRNG is stateful, so the negated
-            # leg cannot replay the same draws; threefry recomputes them
-            # exactly — engines disallow hw+antithetic.
-            draw_neg = lambda m: tuple(-z for z in draw_pair(m))
-            pay_neg, x_neg = _payoff_leg(payoff, cfg, p, s0, draw_neg, state_init)
-            pay = 0.5 * (pay + pay_neg)
-            x = 0.5 * (x + x_neg)
-
-        pay = jnp.where(valid, pay, 0.0)
-        vals = [pay, pay * pay]
-        if cfg.with_cv:
-            # Control variate X = terminal price (pair-mean if antithetic):
-            # E[X] = S0 * exp(rT) exactly under the log-Euler scheme.
-            x = jnp.where(valid, x, 0.0)
-            vals += [x, x * x, pay * x]
-        _accumulate_moments(outs, comp_ref, vals, i, cfg.tile_rows)
+        for m, v in enumerate(_chunked_tile(n_chunks, chunk, n_out)):
+            out_ref[m, i] = v
 
     return kernel
 
@@ -394,7 +342,7 @@ def _make_sim_kernel(payoff: PathPayoff, cfg: KernelConfig, with_resume: bool):
     static_argnames=("payoff", "cfg", "interpret"))
 def simulate_partials(payoff: PathPayoff, cfg: KernelConfig, key, params,
                       path_offset=0, n_valid=None, s_init=None,
-                      state_init=None, interpret=None):
+                      state_init=None, interpret: bool = False):
     """Run the fused kernel; returns a tuple of (8, 128) f32 accumulators.
 
     accumulators = (sum_pay, sum_pay2[, sum_x, sum_x2, sum_pay_x]).
@@ -403,60 +351,24 @@ def simulate_partials(payoff: PathPayoff, cfg: KernelConfig, key, params,
     the traced global path-count bound (defaults to offset + cfg.n_paths) —
     together they make the same jitted program serve every shard of a mesh.
     `s_init`/`state_init`: optional per-path resume arrays shaped
-    (n_tiles*tile_rows, 128) — the TPU form of the reference's (Sk, Ik, Tk)
-    resume arguments (trajectories.cuh:116-117).
+    (n_tiles*tile_rows, 128) — the reference's (Sk, Ik, Tk) resume
+    arguments (trajectories.cuh:116-117).
     """
-    if interpret is None:
-        interpret = use_interpret()
     with_resume = s_init is not None
     n_out = 5 if cfg.with_cv else 2
-    kernel = _make_sim_kernel(payoff, cfg, with_resume)
-
     offset = jnp.asarray(path_offset, jnp.uint32)
     bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
              else jnp.asarray(n_valid, jnp.uint32))
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # key (2,) uint32
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # params (P,) f32
-        pl.BlockSpec(memory_space=pltpu.SMEM),  # meta (offset, bound) uint32
-    ]
     inputs = [jnp.asarray(key, jnp.uint32), params,
               jnp.stack([offset, bound])]
     if with_resume:
-        tile_spec = pl.BlockSpec((cfg.tile_rows, LANES), lambda i: (i, 0),
-                                 memory_space=pltpu.VMEM)
-        in_specs.append(tile_spec)
-        inputs.append(s_init)
-        for arr in (state_init or ()):
-            in_specs.append(tile_spec)
-            inputs.append(arr)
-
-    # One (8,128) accumulator per moment, revisited by every grid step
-    # (constant index map): the sequential-grid replacement for atomicAdd.
-    out_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-    out_shape = jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32)
-
-    flops_per_step = 120  # threefry + box-muller + exp, rough
-    cost = pl.CostEstimate(
-        flops=cfg.n_tiles * cfg.paths_per_tile
-        * max(1, (cfg.n_steps if cfg.method == "euler" else 1))
-        * flops_per_step * (2 if cfg.antithetic else 1),
-        bytes_accessed=cfg.n_tiles * LANES * 4 * n_out,
-        transcendentals=cfg.n_tiles * cfg.paths_per_tile
-        * max(1, (cfg.n_steps if cfg.method == "euler" else 1)) * 4,
-    )
-
-    return pl.pallas_call(
-        kernel,
-        grid=(cfg.n_tiles,),
-        in_specs=in_specs,
-        out_specs=[out_spec] * n_out,
-        out_shape=[out_shape] * n_out,
-        scratch_shapes=[pltpu.VMEM((n_out, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-        cost_estimate=cost if cfg.use_cost_estimate else None,
-    )(*inputs)
+        inputs += [s_init, *(state_init or ())]
+    parts = triton_call(
+        _make_sim_kernel(payoff, cfg, with_resume),
+        _partials_shape(n_out, cfg.n_tiles),
+        grid=(cfg.n_tiles,), name=f"mc_paths_{cfg.method}",
+        interpret=interpret)(*inputs)
+    return tuple(kahan_tiles_kernel(parts, interpret))
 
 
 # ---------------------------------------------------------------------------
@@ -464,58 +376,70 @@ def simulate_partials(payoff: PathPayoff, cfg: KernelConfig, key, params,
 # ---------------------------------------------------------------------------
 
 
-def _make_traj_kernel(payoff: PathPayoff, cfg: KernelConfig):
-    assert payoff.n_state <= 1, "trajectory kernel stores one state array"
+def outer_tile_history(payoff: PathPayoff, cfg, p, k0, k1, ids, persist):
+    """Simulate an outer trajectory block, calling ``persist(j, s, state)``
+    after every step j; returns ``(s_T, state_T)``.  The trajectory
+    kernel's step loop; `_history_scan` is its XLA form."""
+    shape = ids.shape
+    s0 = jnp.full(shape, p.s0, jnp.float32)
+    state0 = payoff.init(p, jnp.zeros_like(s0))
+    rounds = getattr(cfg, "rng_rounds", rng.DEFAULT_ROUNDS)
 
-    def kernel(key_ref, params_ref, meta_ref, s_out, st_out, pay_sum, pay_sq,
-               comp_ref):
+    def one_step(w, state, z):
+        w = w + (p.drift_dt + p.vol_dt * z)
+        s = s0 * jnp.exp(w)  # log-space: one exp rounding per S_t
+        return w, s, payoff.update(state, s, p)
+
+    def body(m, carry):
+        w, s, state = carry
+        z0, z1 = _tile_normals_threefry(k0, k1, ids, m, rounds=rounds)
+        w, s, state = one_step(w, state, z0)
+        persist(2 * m, s, state)
+        w, s, state = one_step(w, state, z1)
+        persist(2 * m + 1, s, state)
+        return (w, s, state)
+
+    w, s_t, state = jax.lax.fori_loop(0, cfg.n_steps // 2, body,
+                                      (jnp.zeros_like(s0), s0, state0))
+    if cfg.n_steps % 2:
+        z0, _ = _tile_normals_threefry(k0, k1, ids, cfg.n_steps // 2,
+                                       rounds=rounds)
+        w, s_t, state = one_step(w, state, z0)
+        persist(cfg.n_steps - 1, s_t, state)
+    return s_t, state
+
+
+def _make_traj_kernel(payoff: PathPayoff, cfg: KernelConfig):
+    if payoff.n_state > 1:
+        raise ValueError("the trajectory kernel stores one state array")
+    n_chunks = cfg.tile_rows // SUBLANES
+
+    def kernel(key_ref, params_ref, meta_ref, s_out, st_out, parts):
         p = unpack_params(params_ref)
         i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        local_ids = base + flat
-        ids = meta_ref[0] + local_ids
-        valid = ids < meta_ref[1]
-        k0 = key_ref[0]
-        k1 = key_ref[1]
 
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        state0 = payoff.init(p, jnp.zeros_like(s0))
+        def chunk(c):
+            row0 = i * cfg.tile_rows + c * SUBLANES
+            rows = pl.ds(row0, SUBLANES)
+            ids = meta_ref[0] + tile_path_ids(row0)
 
-        def persist(j, s, state):
-            # Persist the full state grid — the HBM-streaming analogue of
-            # d_stock_prices/d_sums_i writes (trajectories.cuh:304-305).
-            s_out[j] = s
-            st_out[j] = state[0] if payoff.n_state else jnp.zeros_like(s)
+            def persist(j, s, state):
+                # The HBM-streaming analogue of the d_stock_prices /
+                # d_sums_i writes (trajectories.cuh:304-305), one step
+                # at a time: a block of n_steps rows need not be a
+                # power of two.
+                s_out[j, rows, :] = s
+                st_out[j, rows, :] = (state[0] if payoff.n_state
+                                      else jnp.zeros_like(s))
 
-        def one_step(w, state, z):
-            w = w + (p.drift_dt + p.vol_dt * z)
-            s = s0 * jnp.exp(w)  # log-space: one exp rounding per S_t
-            return w, s, payoff.update(state, s, p)
+            s_t, state = outer_tile_history(payoff, cfg, p, key_ref[0],
+                                            key_ref[1], ids, persist)
+            pay = jnp.where(ids < meta_ref[1],
+                            payoff.terminal(state, s_t, p), 0.0)
+            return [pay, pay * pay]
 
-        def body(m, carry):
-            w, s, state = carry
-            z0, z1 = _tile_normals_threefry(k0, k1, ids, m,
-                                            rounds=cfg.rng_rounds)
-            w, s, state = one_step(w, state, z0)
-            persist(2 * m, s, state)
-            w, s, state = one_step(w, state, z1)
-            persist(2 * m + 1, s, state)
-            return (w, s, state)
-
-        w0 = jnp.zeros_like(s0)
-        w, s_t, state = jax.lax.fori_loop(0, cfg.n_steps // 2, body,
-                                          (w0, s0, state0))
-        if cfg.n_steps % 2:
-            z0, _ = _tile_normals_threefry(k0, k1, ids, cfg.n_steps // 2,
-                                           rounds=cfg.rng_rounds)
-            w, s_t, state = one_step(w, state, z0)
-            persist(cfg.n_steps - 1, s_t, state)
-        pay = jnp.where(valid, payoff.terminal(state, s_t, p), 0.0)
-        _accumulate_moments((pay_sum, pay_sq), comp_ref, [pay, pay * pay], i,
-                            cfg.tile_rows)
+        for m, v in enumerate(_chunked_tile(n_chunks, chunk, 2)):
+            parts[m, i] = v
 
     return kernel
 
@@ -523,444 +447,126 @@ def _make_traj_kernel(payoff: PathPayoff, cfg: KernelConfig):
 @functools.partial(jax.jit, static_argnames=("payoff", "cfg", "interpret"))
 def simulate_trajectories_kernel(payoff: PathPayoff, cfg: KernelConfig, key,
                                  params, path_offset=0, n_valid=None,
-                                 interpret=None):
+                                 interpret: bool = False):
     """Materialize the full (S, state) grids + payoff partials.
 
     Returns (s_grid, state_grid, pay_partials, pay_sq_partials) with grids
     shaped (n_steps, n_tiles*tile_rows, 128): step-major so the NMC inner
     stage can tile (step, point-block) slabs straight out of HBM.
     """
-    if interpret is None:
-        interpret = use_interpret()
-    kernel = _make_traj_kernel(payoff, cfg)
+    rows = cfg.n_tiles * cfg.tile_rows
+    offset = jnp.asarray(path_offset, jnp.uint32)
+    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
+             else jnp.asarray(n_valid, jnp.uint32))
+    grid = jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32)
+    s, st, parts = triton_call(
+        _make_traj_kernel(payoff, cfg),
+        [grid, grid, _partials_shape(2, cfg.n_tiles)],
+        grid=(cfg.n_tiles,), name="mc_trajectories",
+        interpret=interpret)(jnp.asarray(key, jnp.uint32), params,
+                             jnp.stack([offset, bound]))
+    psum, psq = kahan_tiles_kernel(parts, interpret)
+    return s, st, psum, psq
+
+
+def trajectories(payoff: PathPayoff, cfg: KernelConfig, key, params,
+                 engine: str, path_offset=0, n_valid=None,
+                 interpret: bool = False):
+    """(s_grid, state_grid, pay_sum, pay_sumsq) by either engine."""
+    if engine == "pallas":
+        return simulate_trajectories_kernel(
+            payoff, cfg, key, params, path_offset=path_offset,
+            n_valid=n_valid, interpret=interpret)
+    return xla_trajectories(payoff, cfg, key, params,
+                            path_offset=path_offset, n_valid=n_valid)
+
+
+def xla_trajectories(payoff: PathPayoff, cfg: KernelConfig, key, params,
+                     path_offset=0, n_valid=None):
+    """XLA engine of `simulate_trajectories_kernel`: same draws, same
+    grids, same (8, 128) fold and Kahan order."""
+    if payoff.n_state > 1:
+        raise ValueError("the trajectory engine stores one state array")
+    p = unpack_params(params)
+    k0 = jnp.asarray(key[0], jnp.uint32)
+    k1 = jnp.asarray(key[1], jnp.uint32)
+    offset = jnp.asarray(path_offset, jnp.uint32)
+    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
+             else jnp.asarray(n_valid, jnp.uint32))
+    shape = (cfg.tile_rows, LANES)
+    flat = tile_path_ids(0, shape)
+
+    def one_tile(carry, i):
+        acc, comp = carry
+        ids = offset + jnp.uint32(i * cfg.paths_per_tile) + flat
+        (s_t, s_hist, c_hist), state = _history_scan(payoff, cfg, p, k0,
+                                                     k1, ids)
+        pay = jnp.where(ids < bound, payoff.terminal(state, s_t, p), 0.0)
+        for m, v in enumerate([pay, pay * pay]):
+            acc, comp = kahan_xla_update(acc, comp, m,
+                                         fold_to_sublanes(v, cfg.tile_rows))
+        return (acc, comp), (s_hist, c_hist)
+
+    zeros = (jnp.zeros((2, SUBLANES, LANES), jnp.float32)
+             + jnp.float32(0) * offset.astype(jnp.float32))
+    (acc, _), (s_tiles, c_tiles) = jax.lax.scan(
+        one_tile, (zeros, zeros), jnp.arange(cfg.n_tiles, dtype=jnp.uint32))
     rows = cfg.n_tiles * cfg.tile_rows
 
-    grid_spec = pl.BlockSpec(
-        (cfg.n_steps, cfg.tile_rows, LANES), lambda i: (0, i, 0),
-        memory_space=pltpu.VMEM)
-    part_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[grid_spec, grid_spec, part_spec, part_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((cfg.n_steps, rows, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params,
-      jnp.stack([jnp.asarray(path_offset, jnp.uint32),
-                 jnp.asarray(path_offset, jnp.uint32) + jnp.uint32(cfg.n_paths)
-                 if n_valid is None else jnp.asarray(n_valid, jnp.uint32)]))
+    def to_grid(x):  # (n_tiles, n_steps, tile_rows, 128) -> step-major
+        return jnp.moveaxis(x, 0, 1).reshape(cfg.n_steps, rows, LANES)
+
+    return to_grid(s_tiles), to_grid(c_tiles), acc[0], acc[1]
 
 
-# ---------------------------------------------------------------------------
-# Strike-ladder kernel: M strikes priced on SHARED paths in one pass.
-# ---------------------------------------------------------------------------
-
-
-def _make_ladder_kernel(payoff: PathPayoff, cfg: KernelConfig,
-                        n_strikes: int):
-    """One simulation, M payoff evaluations.
-
-    The RNG + step loop (the entire cost) runs once per tile; each strike
-    adds only a terminal-payoff evaluation + fold (~1% of a path).  The
-    reference would have run its whole pipeline M times.  Strike enters
-    every registered payoff only through ``terminal``, so the path state is
-    shared exactly.
-    """
-
-    def kernel(key_ref, params_ref, meta_ref, strikes_ref, sum_ref, sq_ref,
-               comp_ref):
-        p = unpack_params(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        k0, k1 = key_ref[0], key_ref[1]
-        draw_pair = lambda m: _tile_normals_threefry(
-            k0, k1, ids, m, rounds=cfg.rng_rounds)
-
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        s_t, state, wgt = _simulate_leg(payoff, cfg, p, s0, draw_pair)
-        if cfg.antithetic:
-            draw_neg = lambda m: tuple(-z for z in draw_pair(m))
-            s_t2, state2, wgt2 = _simulate_leg(payoff, cfg, p, s0, draw_neg)
-
-        @pl.when(i == 0)
-        def _init():
-            sum_ref[:] = jnp.zeros_like(sum_ref)
-            sq_ref[:] = jnp.zeros_like(sq_ref)
-            comp_ref[:] = jnp.zeros_like(comp_ref)
-
-        # fori_loop (not a static unroll) over strikes: the per-strike body
-        # traces once, keeping Mosaic compile time flat in n_strikes.
-        def strike_body(m, _):
-            pm = SimpleNamespace(**{**p.__dict__, "k": strikes_ref[m]})
-            pay = payoff.terminal(state, s_t, pm)
-            if wgt is not None:
-                pay = pay * wgt
-            if cfg.antithetic:
-                pay2 = payoff.terminal(state2, s_t2, pm)
-                if wgt is not None:
-                    pay2 = pay2 * wgt2
-                pay = 0.5 * (pay + pay2)
-            pay = jnp.where(valid, pay, 0.0)
-            for out_ref, cslot, v in ((sum_ref, 2 * m, pay),
-                                      (sq_ref, 2 * m + 1, pay * pay)):
-                p8 = _fold_to_sublanes(v, cfg.tile_rows)
-                acc = out_ref[m]
-                y = p8 - comp_ref[cslot]
-                t = acc + y
-                comp_ref[cslot] = (t - acc) - y
-                out_ref[m] = t
-            return 0
-
-        jax.lax.fori_loop(0, n_strikes, strike_body, 0)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "n_strikes",
-                                             "interpret"))
-def simulate_ladder_partials(payoff: PathPayoff, cfg: KernelConfig,
-                             n_strikes: int, key, params, strikes,
-                             path_offset=0, n_valid=None, interpret=None):
-    """Moment accumulators for M strikes on shared paths.
-
-    Returns (sum_acc, sq_acc), each (n_strikes, 8, 128) f32.
-    """
-    if interpret is None:
-        interpret = use_interpret()
-    offset = jnp.asarray(path_offset, jnp.uint32)
-    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    acc_spec = pl.BlockSpec((n_strikes, SUBLANES, LANES), lambda i: (0, 0, 0),
-                            memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _make_ladder_kernel(payoff, cfg, n_strikes),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 4,
-        out_specs=[acc_spec, acc_spec],
-        out_shape=[jax.ShapeDtypeStruct((n_strikes, SUBLANES, LANES),
-                                        jnp.float32)] * 2,
-        scratch_shapes=[pltpu.VMEM((2 * n_strikes, SUBLANES, LANES),
-                                   jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params, jnp.stack([offset, bound]),
-      jnp.asarray(strikes, jnp.float32))
-
-
-# ---------------------------------------------------------------------------
-# Batched-book kernel: B contracts, each with its OWN full parameter row,
-# priced in ONE kernel pass.
-# ---------------------------------------------------------------------------
-
-
-def unpack_params_row(params_ref, b) -> SimpleNamespace:
-    """Unpack contract row ``b`` of a (B, P) SMEM parameter array."""
-    return SimpleNamespace(
-        **{f: params_ref[b, i] for i, f in enumerate(PARAM_FIELDS)})
-
-
-def _make_book_kernel(payoff: PathPayoff, cfg: KernelConfig,
-                      n_contracts: int):
-    """One kernel pass prices a whole book under common random numbers.
-
-    The reference prices one hard-coded contract per full pipeline run
-    (hello.cu:5-19); a B-contract book there costs B pipelines.  Here the
-    per-contract parameter rows sit in SMEM and a fori_loop over contracts
-    re-runs the in-register step loop on the SAME tile of threefry draws
-    (CRN across the book makes spreads/book-Greeks low-variance), so a
-    B=64 book costs one kernel launch + B in-VMEM simulations — no HBM
-    traffic between contracts.  Each contract's (8,128) Kahan accumulator
-    pair is bit-identical to what its standalone single-contract kernel
-    would produce.
-
-    The tile's threefry draws are generated ONCE into a VMEM buffer and
-    replayed by every contract (they are identical under CRN anyway), so
-    the B-contract book pays 1x the RNG cost instead of Bx — the RNG is
-    roughly half the step-loop cost, so this nearly doubles large-book
-    throughput on top of the launch-overhead win.
-    """
-    n_pairs = 1 if cfg.method == "terminal" else (cfg.n_steps + 1) // 2
-
-    def kernel(key_ref, params_ref, meta_ref, *outs_and_scratch):
-        comp_ref, zbuf_ref = outs_and_scratch[-2:]
-        outs = outs_and_scratch[:-2]
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        k0, k1 = key_ref[0], key_ref[1]
-
-        def fill(m, _):
-            z0, z1 = _tile_normals_threefry(k0, k1, ids, m,
-                                            rounds=cfg.rng_rounds)
-            zbuf_ref[0, m] = z0
-            zbuf_ref[1, m] = z1
-            return 0
-
-        jax.lax.fori_loop(0, n_pairs, fill, 0)
-        draw_pair = lambda m: (zbuf_ref[0, m], zbuf_ref[1, m])
-
-        @pl.when(i == 0)
-        def _init():
-            for o in outs:
-                o[:] = jnp.zeros_like(o)
-            comp_ref[:] = jnp.zeros_like(comp_ref)
-
-        n_mom = 5 if cfg.with_cv else 2
-
-        # fori_loop (not a static unroll) over contracts: one trace of the
-        # step loop regardless of B, keeping Mosaic compile time flat.
-        def contract_body(b, _):
-            p = unpack_params_row(params_ref, b)
-            s0 = jnp.full(shape, p.s0, jnp.float32)
-            pay, x = _payoff_leg(payoff, cfg, p, s0, draw_pair)
-            if cfg.antithetic:
-                draw_neg = lambda m: tuple(-z for z in draw_pair(m))
-                pay2, x2 = _payoff_leg(payoff, cfg, p, s0, draw_neg)
-                pay = 0.5 * (pay + pay2)
-                x = 0.5 * (x + x2)
-            pay = jnp.where(valid, pay, 0.0)
-            vals = [pay, pay * pay]
-            if cfg.with_cv:
-                x = jnp.where(valid, x, 0.0)
-                vals += [x, x * x, pay * x]
-            for m, v in enumerate(vals):
-                out_ref = outs[m]
-                cslot = n_mom * b + m
-                p8 = _fold_to_sublanes(v, cfg.tile_rows)
-                acc = out_ref[b]
-                y = p8 - comp_ref[cslot]
-                t = acc + y
-                comp_ref[cslot] = (t - acc) - y
-                out_ref[b] = t
-            return 0
-
-        jax.lax.fori_loop(0, n_contracts, contract_body, 0)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "n_contracts",
-                                             "interpret"))
-def simulate_book_partials(payoff: PathPayoff, cfg: KernelConfig,
-                           n_contracts: int, key, params_rows,
-                           path_offset=0, n_valid=None, interpret=None):
-    """Moment accumulators for a B-contract book in one kernel pass.
-
-    ``params_rows``: (B, P) f32 — one pack_params row per contract.
-    Returns n_mom (B, 8, 128) f32 accumulators: (sum, sumsq) or, with
-    cfg.with_cv, (sum, sumsq, x, x^2, pay*x).
-    """
-    if interpret is None:
-        interpret = use_interpret()
-    n_mom = 5 if cfg.with_cv else 2
-    offset = jnp.asarray(path_offset, jnp.uint32)
-    bound = (offset + jnp.uint32(cfg.n_paths) if n_valid is None
-             else jnp.asarray(n_valid, jnp.uint32))
-    acc_spec = pl.BlockSpec((n_contracts, SUBLANES, LANES),
-                            lambda i: (0, 0, 0), memory_space=pltpu.VMEM)
-    n_pairs = 1 if cfg.method == "terminal" else (cfg.n_steps + 1) // 2
-    return pl.pallas_call(
-        _make_book_kernel(payoff, cfg, n_contracts),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[acc_spec] * n_mom,
-        out_shape=[jax.ShapeDtypeStruct((n_contracts, SUBLANES, LANES),
-                                        jnp.float32)] * n_mom,
-        scratch_shapes=[pltpu.VMEM((n_mom * n_contracts, SUBLANES, LANES),
-                                   jnp.float32),
-                        pltpu.VMEM((2, n_pairs, cfg.tile_rows, LANES),
-                                   jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params_rows,
-      jnp.stack([offset, bound]))
-
-
-def book_tile_rows(tile_rows: int, n_steps: int, method: str,
-                   budget_bytes: int = 6 << 20) -> int:
-    """Cap tile height so the book kernel's shared normal buffer fits VMEM.
-
-    Applied by price_portfolio to BOTH engines so the pallas/xla bitwise
-    duality (same fold width) survives the cap.
-    """
-    n_pairs = 1 if method == "terminal" else (n_steps + 1) // 2
-    cap = budget_bytes // (2 * n_pairs * LANES * 4)
-    return max(8, min(tile_rows, (cap // 8) * 8))
-
-
-# ---------------------------------------------------------------------------
-# Pathwise-Greek kernel: price + delta/vega/rho/epsilon moments in ONE
-# fused pass at production-engine speed.
-# ---------------------------------------------------------------------------
-
-
-def _greek_leg(payoff: PathPayoff, cfg: KernelConfig, p, s0, draw_pair):
-    """Forward-mode leg: primal + tangents w.r.t. (s0, sigma, r, q).
-
-    The GBM tangents are closed-form in the carried (w, sum_z) — after j
-    steps (elapsed t_j = j*dt):
-        ds/ds0   = s / s0
-        ds/dsigma = s * (-sigma t_j + sqrt(dt) * sum_z)
-        ds/dr    =  s * t_j
-        ds/dq    = -s * t_j
-    Payoff-state tangents propagate by jax.jvp of the (elementwise)
-    ``payoff.update`` per step — Mosaic compiles elementwise jvp fine
-    (jvp THROUGH fori_loop does not lower, hence the manual carry).
-    Returns (pay, dpay) with dpay a dict over the four parameters.
-    """
-    names = ("s0", "sigma", "r", "q")
-
-    def ds_all(s, t_j, sum_z, sqrt_dt):
-        return {
-            "s0": s / p.s0,
-            "sigma": s * (-p.sigma * t_j + sqrt_dt * sum_z),
-            "r": s * t_j,
-            "q": -(s * t_j),
-        }
-
-    if cfg.method == "terminal":
-        z, _ = draw_pair(0)
-        s_t = s0 * jnp.exp(p.drift_t + p.vol_t * z)
-        sqrt_t = p.vol_t / p.sigma
-        ds = ds_all(s_t, p.t, z, sqrt_t)
-        out = {}
-        for g in names:
-            pay, dpay = jax.jvp(lambda ss: payoff.terminal((), ss, p),
-                                (s_t,), (ds[g],))
-            out[g] = dpay
-        return pay, out
-
-    sqrt_dt = p.vol_dt / p.sigma
+def _history_scan(payoff, cfg, p, k0, k1, ids):
+    """XLA form of `outer_tile_history`: a scan over Box-Muller pairs that
+    stacks the per-step (S, state) history.  Returns ``((s_T, s_hist,
+    c_hist), state_T)``."""
+    shape = ids.shape
+    rounds = getattr(cfg, "rng_rounds", rng.DEFAULT_ROUNDS)
+    s0 = jnp.full(shape, p.s0, jnp.float32)
     state0 = payoff.init(p, jnp.zeros_like(s0))
-    dstate0 = {g: jax.tree_util.tree_map(jnp.zeros_like, state0)
-               for g in names}
 
-    def one_step(j, w, sum_z, state, dstate, z):
+    def one_step(w, state, z):
         w = w + (p.drift_dt + p.vol_dt * z)
-        sum_z = sum_z + z
-        s = s0 * jnp.exp(w)
-        t_j = (jnp.asarray(j, jnp.float32) + 1.0) * p.dt
-        ds = ds_all(s, t_j, sum_z, sqrt_dt)
-        new_dstate = {}
-        for g in names:
-            # primal recomputed per tangent; XLA CSE collapses the copies
-            new_state, dst = jax.jvp(
-                lambda st, ss: payoff.update(st, ss, p),
-                (state, s), (dstate[g], ds[g]))
-            new_dstate[g] = dst
-        return w, sum_z, new_state, new_dstate
+        s = s0 * jnp.exp(w)  # log-space: one exp rounding per S_t
+        return w, s, payoff.update(state, s, p)
 
-    def body(m, carry):
-        w, sum_z, state, dstate = carry
-        z0, z1 = draw_pair(m)
-        w, sum_z, state, dstate = one_step(2 * m, w, sum_z, state,
-                                           dstate, z0)
-        w, sum_z, state, dstate = one_step(2 * m + 1, w, sum_z, state,
-                                           dstate, z1)
-        return (w, sum_z, state, dstate)
+    def keep(s, state):
+        return state[0] if payoff.n_state else jnp.zeros_like(s)
 
-    zero = jnp.zeros_like(s0)
-    w, sum_z, state, dstate = jax.lax.fori_loop(
-        0, cfg.n_steps // 2, body, (zero, zero, state0, dstate0))
+    def pair_step(carry, m):
+        w, s, state = carry
+        z0, z1 = _tile_normals_threefry(k0, k1, ids, m, rounds=rounds)
+        w, s1, st1 = one_step(w, state, z0)
+        w, s2, st2 = one_step(w, st1, z1)
+        return (w, s2, st2), (jnp.stack([s1, s2]),
+                              jnp.stack([keep(s1, st1), keep(s2, st2)]))
+
+    n_pairs = cfg.n_steps // 2
+    (w, s_t, state), (s_hist, c_hist) = jax.lax.scan(
+        pair_step, (jnp.zeros_like(s0), s0, state0),
+        jnp.arange(n_pairs, dtype=jnp.uint32))
+    s_hist = s_hist.reshape(2 * n_pairs, *shape)
+    c_hist = c_hist.reshape(2 * n_pairs, *shape)
     if cfg.n_steps % 2:
-        z0, _ = draw_pair(cfg.n_steps // 2)
-        w, sum_z, state, dstate = one_step(cfg.n_steps - 1, w, sum_z,
-                                           state, dstate, z0)
-    s_t = s0 * jnp.exp(w)
-    ds = ds_all(s_t, p.t, sum_z, sqrt_dt)
-    out = {}
-    for g in names:
-        pay, dpay = jax.jvp(
-            lambda st, ss: payoff.terminal(st, ss, p),
-            (state, s_t), (dstate[g], ds[g]))
-        out[g] = dpay
-    return pay, out
-
-
-def _greek_moment_values(payoff, cfg, p, ids, valid, draw_pair):
-    """The 10 moment tiles [pay, pay^2, g_d, g_d^2, ...] shared by the
-    Pallas kernel and the XLA dual (one definition keeps them bitwise)."""
-    s0 = jnp.full(ids.shape, p.s0, jnp.float32)
-    pay, dpay = _greek_leg(payoff, cfg, p, s0, draw_pair)
-    # rho folds the discount derivative -T*pay; epsilon has none (q does
-    # not enter e^{-rT})
-    vals = [pay, dpay["s0"], dpay["sigma"], dpay["r"] - p.t * pay,
-            dpay["q"]]
-    out = []
-    for v in vals:
-        v = jnp.where(valid, v, 0.0)
-        out += [v, v * v]
-    return out
-
-
-def _make_greek_kernel(payoff: PathPayoff, cfg: KernelConfig):
-    def kernel(key_ref, params_ref, meta_ref, *out_and_scratch):
-        outs, comp_ref = out_and_scratch[:-1], out_and_scratch[-1]
-        p = unpack_params(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = meta_ref[0] + base + flat
-        valid = ids < meta_ref[1]
-        k0, k1 = key_ref[0], key_ref[1]
-        draw_pair = lambda m: _tile_normals_threefry(
-            k0, k1, ids, m, rounds=cfg.rng_rounds)
-        vals = _greek_moment_values(payoff, cfg, p, ids, valid, draw_pair)
-        _accumulate_moments(outs, comp_ref, vals, i, cfg.tile_rows)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("payoff", "cfg", "interpret"))
-def simulate_greek_partials(payoff: PathPayoff, cfg: KernelConfig, key,
-                            params, interpret=None):
-    """(pay, delta, vega, rho', epsilon) x (sum, sumsq) accumulators —
-    10 (8,128) slabs from one fused pass."""
-    if interpret is None:
-        interpret = use_interpret()
-    n_out = 10
-    acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                            memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _make_greek_kernel(payoff, cfg),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=[acc_spec] * n_out,
-        out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                        jnp.float32)] * n_out,
-        scratch_shapes=[pltpu.VMEM((n_out, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(jnp.asarray(key, jnp.uint32), params,
-      jnp.stack([jnp.uint32(0), jnp.uint32(cfg.n_paths)]))
+        z0, _ = _tile_normals_threefry(k0, k1, ids, cfg.n_steps // 2,
+                                       rounds=rounds)
+        w, s_t, state = one_step(w, state, z0)
+        s_hist = jnp.concatenate([s_hist, s_t[None]], axis=0)
+        c_hist = jnp.concatenate([c_hist, keep(s_t, state)[None]], axis=0)
+    return (s_t, s_hist, c_hist), state
 
 
 # ---------------------------------------------------------------------------
 # Paired terminal kernel: BOTH Box-Muller halves become paths.
 #
 # The classic terminal kernel (trajectories.cuh:74-75 analogue) burns one
-# threefry + one full Box-Muller pair per path and discards z1 — the
-# measured roofline (BASELINE.md) shows that pair is ~70% of the per-path
-# budget, so the discard leaves ~1.8x on the table.  Here element e
-# carries paths (2e, 2e+1): one threefry + one Box-Muller pair prices
-# TWO exact terminal draws, and the moment accumulators take per-path
-# [pay_a + pay_b, pay_a^2 + pay_b^2] so the stderr stays exact.
+# threefry + one full Box-Muller pair per path and discards z1.  Here
+# element e carries paths (2e, 2e+1): one threefry + one Box-Muller pair
+# prices TWO exact terminal draws, and the moment accumulators take
+# per-path [pay_a + pay_b, pay_a^2 + pay_b^2] so the stderr stays exact.
 # Terminal-only payoffs, counter-based RNG, no antithetic/CV/IS (those
 # route through the classic kernel).
 # ---------------------------------------------------------------------------
@@ -981,31 +587,21 @@ def _terminal_pair_vals(payoff, p, ids_e, bound_paths, z0, z1):
 
 
 def _make_terminal_pair_kernel(payoff: PathPayoff, cfg: KernelConfig):
-    def kernel(key_ref, params_ref, meta_ref, sum_ref, sq_ref, comp_ref):
-        from jax.experimental.pallas import tpu as pltpu
+    n_chunks = cfg.tile_rows // SUBLANES
 
+    def kernel(key_ref, params_ref, meta_ref, parts):
         p = unpack_params(params_ref)
         i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids_e = meta_ref[0] + base + flat
-        if cfg.rng_source == "hw":
-            # Stateful hardware PRNG — the analogue of the reference's
-            # per-thread curandState (trajectories.cuh:74-75): seed once
-            # per tile (golden-ratio-mixed tile tag, same convention as
-            # the classic kernel) and stream raw bits.  Drops the
-            # 13-round threefry from the per-path budget entirely.
-            tile_tag = (meta_ref[0] + jnp.uint32(i)) * jnp.uint32(0x9E3779B9)
-            pltpu.prng_seed(key_ref[0] ^ tile_tag, key_ref[1])
-            z0, z1 = _tile_normals_hw(shape)
-        else:
+
+        def chunk(c):
+            ids_e = meta_ref[0] + tile_path_ids(i * cfg.tile_rows
+                                                + c * SUBLANES)
             z0, z1 = _tile_normals_threefry(key_ref[0], key_ref[1], ids_e,
                                             0, rounds=cfg.rng_rounds)
-        vals = _terminal_pair_vals(payoff, p, ids_e, meta_ref[1], z0, z1)
-        _accumulate_moments((sum_ref, sq_ref), comp_ref, vals, i,
-                            cfg.tile_rows)
+            return _terminal_pair_vals(payoff, p, ids_e, meta_ref[1], z0, z1)
+
+        for m, v in enumerate(_chunked_tile(n_chunks, chunk, 2)):
+            parts[m, i] = v
 
     return kernel
 
@@ -1014,40 +610,29 @@ def _make_terminal_pair_kernel(payoff: PathPayoff, cfg: KernelConfig):
                                              "interpret"))
 def terminal_pair_partials(payoff: PathPayoff, cfg: KernelConfig, key,
                            params, n_paths_total: jnp.uint32,
-                           engine: str = "pallas", interpret=None):
+                           engine: str = "xla", interpret: bool = False):
     """(sum, sumsq) (8,128) slabs over ``cfg.n_paths`` ELEMENTS (= two
     terminal paths each); ``n_paths_total`` masks the trailing odd path."""
-    if interpret is None:
-        interpret = use_interpret()
     if engine not in ("pallas", "xla"):
         raise ValueError(f"unknown engine {engine!r}; use 'pallas' or "
                          "'xla'")
-    if cfg.rng_source == "hw" and engine != "pallas":
-        raise ValueError("rng_source='hw' requires engine='pallas'")
     bound = jnp.asarray(n_paths_total, jnp.uint32)
     if engine == "pallas":
-        acc_spec = pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.pallas_call(
+        parts = triton_call(
             _make_terminal_pair_kernel(payoff, cfg),
-            grid=(cfg.n_tiles,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=[acc_spec, acc_spec],
-            out_shape=[jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                            jnp.float32)] * 2,
-            scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-            interpret=interpret,
-        )(jnp.asarray(key, jnp.uint32), params,
-          jnp.stack([jnp.uint32(0), bound]))
+            _partials_shape(2, cfg.n_tiles),
+            grid=(cfg.n_tiles,), name="mc_terminal_pair",
+            interpret=interpret)(jnp.asarray(key, jnp.uint32), params,
+                                 jnp.stack([jnp.uint32(0), bound]))
+        return tuple(kahan_tiles_kernel(parts, interpret))
     p = unpack_params(params)
     k0 = jnp.asarray(key[0], jnp.uint32)
     k1 = jnp.asarray(key[1], jnp.uint32)
 
     def tile_fn(ids_e, valid):
         del valid  # per-PATH masking happens inside (bound is in paths)
-        c1 = jnp.zeros_like(ids_e)
-        z0, z1 = rng.normal_pair(k0, k1, ids_e, c1,
-                                 rounds=cfg.rng_rounds)
+        z0, z1 = _tile_normals_threefry(k0, k1, ids_e, 0,
+                                        rounds=cfg.rng_rounds)
         return _terminal_pair_vals(payoff, p, ids_e, bound, z0, z1)
 
     return xla_moment_scan(tile_fn, cfg.n_paths, cfg.tile_rows, 2)

@@ -8,7 +8,7 @@ small static object with three pure functions over ``(state, S, params)``;
 one generic fused kernel handles every payoff (bullet, Asian, knock-out,
 lookback, ...) because the payoff code is inlined into the step loop at
 trace time.  Branches like ``if (B > St) count += 1`` become masked
-``jnp.where`` — the idiomatic divergence-free form on the VPU.
+``jnp.where`` — the divergence-free form every lane runs in step.
 
 State arrays are all float32 so kernels carry a homogeneous tuple; step
 counts are exact in f32 up to 2^24 steps.

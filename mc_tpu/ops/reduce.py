@@ -1,24 +1,21 @@
-"""Hierarchical reductions: the TPU equivalent of ``inc/reduce.cuh``.
+"""Hierarchical reductions: the equivalent of ``inc/reduce.cuh``.
 
 The reference ships four escalating shared-memory tree-sum kernels
 (reduce3..reduce6, ``inc/reduce.cuh:9-227``, ported from the NVIDIA sample)
-plus global-memory ``atomicAdd`` for the grid-level combine.  On TPU none of
-that machinery exists or is needed:
+plus global-memory ``atomicAdd`` for the grid-level combine.  Here:
 
-* warp shuffle + shared-memory tree  ->  a single ``jnp.sum`` over a VMEM
-  tile (the VPU reduces 8x128 registers natively);
-* per-block partials (``g_odata[blockIdx.x]``)  ->  per-grid-step lane
-  partials written to an ``(n_tiles, 128)`` output;
-* ``atomicAdd`` across blocks  ->  *sequential* grid accumulation — the TPU
-  grid is executed in order on each core, so revisiting an output block is
-  race-free by construction (SURVEY.md section 2, "parallelism strategies");
+* shared-memory tree + warp shuffle  ->  `fold_to_sublanes`, which sums a
+  (tile_rows, 128) tile to one (8, 128) slab in a fixed row order;
+* per-block partials (``g_odata[blockIdx.x]``)  ->  one (8, 128) slab per
+  tile;
+* ``atomicAdd`` across blocks  ->  a Kahan pass over the slabs in tile
+  order (`kahan_tiles`), so the sum does not depend on scheduling;
 * NCCL (absent in the reference)  ->  ``jax.lax.psum`` over a mesh axis
   (see mc_tpu/parallel/mesh.py).
 
 Accuracy: payoff sums at 1e9 paths overflow f32 relative precision, so the
-f32 lane partials are combined in float64 (`finish_sum`) — cheap because
-only ``n_tiles * 128`` values ever touch f64.  A Kahan-compensated f32 sum
-is provided as a CPU-friendly cross-check.
+Kahan-exact (8, 128) cells are combined in float64 or double-float
+(`finish_sum`).  A sequential Kahan f32 sum is provided as ground truth.
 """
 
 from __future__ import annotations
@@ -27,17 +24,14 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from mc_tpu.ops._pallas import (LANES, SUBLANES,
-                                fold_to_sublanes as _fold8, round_up,
-                                use_interpret)
+from mc_tpu.ops._pallas import (LANES, fold_to_sublanes, kahan_tiles,
+                                round_up)
 
 __all__ = [
     "tile_partials",
-    "sum_pallas",
-    "sum_sumsq_pallas",
+    "tile_sum",
+    "tile_sum_sumsq",
     "finish_sum",
     "kahan_sum",
     "pad_to_tiles",
@@ -54,49 +48,17 @@ def pad_to_tiles(x, tile_rows: int):
     return flat.reshape(padded // LANES, LANES), padded // per_tile
 
 
-
-def _partials_kernel_factory(tile_rows: int):
-    def kernel(x_ref, out_ref, comp_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            out_ref[:] = jnp.zeros_like(out_ref)
-            comp_ref[:] = jnp.zeros_like(comp_ref)
-
-        p8 = _fold8(x_ref[:], tile_rows)
-        acc = out_ref[:]
-        y = p8 - comp_ref[0]
-        t = acc + y
-        comp_ref[0] = (t - acc) - y
-        out_ref[:] = t
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("tile_rows", "interpret"))
-def tile_partials(x, tile_rows: int = 256, interpret: bool | None = None):
+@functools.partial(jax.jit, static_argnames=("tile_rows",))
+def tile_partials(x, tile_rows: int = 256):
     """Hierarchical sum partials: the reduce3..6 analogue.
 
-    Each grid step tree-reduces one (tile_rows, 128) VMEM tile to (8, 128)
-    and Kahan-accumulates it into a single (8, 128) VMEM accumulator block —
-    the sequential-grid replacement for the reference's per-block partials +
-    atomicAdd combine.  Returns the (8, 128) f32 accumulator.
+    Folds each (tile_rows, 128) tile to (8, 128) and Kahan-accumulates the
+    slabs in tile order.  Returns the (8, 128) f32 accumulator.
     """
-    if interpret is None:
-        interpret = use_interpret()
     x2d, n_tiles = pad_to_tiles(x, tile_rows)
-    return pl.pallas_call(
-        _partials_kernel_factory(tile_rows),
-        grid=(n_tiles,),
-        in_specs=[pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((1, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(x2d)
+    tiles = x2d.reshape(n_tiles, tile_rows, LANES)
+    return kahan_tiles(jax.vmap(lambda t: fold_to_sublanes(t, tile_rows))(
+        tiles))
 
 
 def _df_add(ah, al, bh, bl):
@@ -117,14 +79,12 @@ def _df_add(ah, al, bh, bl):
 def finish_sum(partials, dtype=jnp.float64):
     """Combine the (8,128) accumulator block exactly.
 
-    With x64 enabled this is a plain f64 tree-sum.  On TPU (x64 off), a
-    double-float (TwoSum-compensated) BINARY TREE over the 1024 cells
-    carries ~47 bits of precision — the cells are already Kahan-exact,
-    so the whole 1e9-path sum ends within ~1-2 ulp.  The tree is 10
-    fully-vectorized levels; the sequential Neumaier scan it replaced
-    cost ~1 ms of latency per call (1024 dependent VPU steps), which
-    DOMINATED terminal-draw pricing (measured: the full 1M-path vanilla
-    impl dropped 1.98 -> 0.060 ms/call).
+    With x64 enabled this is a plain f64 tree-sum.  On an accelerator
+    (x64 off), a double-float (TwoSum-compensated) BINARY TREE over the
+    1024 cells carries ~47 bits of precision — the cells are already
+    Kahan-exact, so the whole 1e9-path sum ends within ~1-2 ulp.  The
+    tree is 10 fully-vectorized levels instead of 1024 dependent steps
+    of a sequential Neumaier scan.
 
     On the CPU backend the scan is kept: latency is irrelevant there,
     and XLA:CPU's compiler was observed to segfault nondeterministically
@@ -162,64 +122,22 @@ def finish_sum(partials, dtype=jnp.float64):
     return (hi + lo)[0]
 
 
-@functools.partial(jax.jit, static_argnames=("tile_rows", "interpret"))
-def sum_pallas(x, tile_rows: int = 256, interpret: bool | None = None):
+@functools.partial(jax.jit, static_argnames=("tile_rows",))
+def tile_sum(x, tile_rows: int = 256):
     """Full hierarchical sum of an array (f32 in, f64-combined out)."""
-    return finish_sum(tile_partials(x, tile_rows=tile_rows, interpret=interpret))
+    return finish_sum(tile_partials(x, tile_rows=tile_rows))
 
 
-def _sum_sumsq_kernel_factory(tile_rows: int):
-    def kernel(x_ref, s_ref, s2_ref, comp_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            s_ref[:] = jnp.zeros_like(s_ref)
-            s2_ref[:] = jnp.zeros_like(s2_ref)
-            comp_ref[:] = jnp.zeros_like(comp_ref)
-
-        v = x_ref[:]
-        for idx, (out_ref, p8) in enumerate(
-                ((s_ref, _fold8(v, tile_rows)),
-                 (s2_ref, _fold8(v * v, tile_rows)))):
-            acc = out_ref[:]
-            y = p8 - comp_ref[idx]
-            t = acc + y
-            comp_ref[idx] = (t - acc) - y
-            out_ref[:] = t
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("tile_rows", "interpret"))
-def sum_sumsq_pallas(x, tile_rows: int = 256, interpret: bool | None = None):
-    """Fused (sum, sum of squares) — one pass over HBM.
+@functools.partial(jax.jit, static_argnames=("tile_rows",))
+def tile_sum_sumsq(x, tile_rows: int = 256):
+    """(sum, sum of squares) of an array.
 
     The moment pair feeds `oracle.summarize` (price + standard error); the
     reference never computed a standard error at all (SURVEY.md section 5).
     """
-    if interpret is None:
-        interpret = use_interpret()
-    x2d, n_tiles = pad_to_tiles(x, tile_rows)
-    s, s2 = pl.pallas_call(
-        _sum_sumsq_kernel_factory(tile_rows),
-        grid=(n_tiles,),
-        in_specs=[pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=[
-            pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((2, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(x2d)
-    return finish_sum(s), finish_sum(s2)
+    x = jnp.asarray(x, jnp.float32)
+    return (finish_sum(tile_partials(x, tile_rows=tile_rows)),
+            finish_sum(tile_partials(x * x, tile_rows=tile_rows)))
 
 
 @jax.jit

@@ -1,6 +1,6 @@
 """Black-Scholes analytic oracle + Monte Carlo error statistics.
 
-TPU-native equivalent of ``inc/BlackandScholes.hpp``.  The reference uses the
+JAX equivalent of ``inc/BlackandScholes.hpp``.  The reference uses the
 Abramowitz-Stegun 5-coefficient polynomial CND approximation
 (``BlackandScholes.hpp:8-30``) as its ground truth; here the primary oracle
 uses the exact normal CDF (`jax.scipy.stats.norm.cdf`), and the A&S
@@ -108,7 +108,7 @@ def cnd_as(x):
 
     Same 5-term approximation as the reference (BlackandScholes.hpp:8-30),
     re-expressed branch-free with `jnp.where` (the reference's sign branch
-    becomes a mask, which is the idiomatic vector form on the VPU).
+    becomes a mask, the idiomatic vector form).
     """
     x = jnp.asarray(x, jnp.float32)
     p = jnp.float32(0.2316419)
@@ -572,7 +572,7 @@ def bs_implied_vol(price, s0, k, t, r, q=0.0, n_iter: int = 24):
     monotonically (vega > 0 makes the call price strictly increasing in
     sigma), Newton steps are taken whenever they land strictly inside it,
     bisection otherwise — globally convergent, fixed trip count, no
-    data-dependent control flow (TPU/jit friendly).  Prices outside the
+    data-dependent control flow (jit friendly).  Prices outside the
     static no-arbitrage band (forward intrinsic, spot) return NaN.
     Inverts MC prices back to vol surfaces without leaving the device.
     """

@@ -31,7 +31,7 @@ from mc_tpu.engines import _payoff_namespace
 from mc_tpu.lsmc import _apply_policy_pass, _backward_fit
 from mc_tpu.oracle import PriceResult
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES
+from mc_tpu.ops._pallas import LANES, resolve_engine
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.parallel.mesh import PATHS_AXIS, make_mesh, shard_bounds
 
@@ -41,9 +41,9 @@ __all__ = ["price_american_sharded"]
 @functools.partial(
     jax.jit,
     static_argnames=("payoff", "sim", "mesh", "degree", "tile_rows",
-                     "every", "two_pass", "interpret"))
+                     "every", "two_pass"))
 def _impl(option, payoff, sim, mesh, degree, tile_rows, every, two_pass,
-          interpret, key, key_b):
+          key, key_b):
     p = _payoff_namespace(option, sim.n_steps)
     n = sim.n_steps
     n_shards = mesh.devices.size
@@ -59,9 +59,9 @@ def _impl(option, payoff, sim, mesh, degree, tile_rows, every, two_pass,
         offset = rank * jnp.uint32(n_local)
 
         def grids(k):
-            s_g, c_g, _, _ = pk.simulate_trajectories_kernel(
-                payoff, cfg, k, params, path_offset=offset,
-                n_valid=n_total, interpret=interpret)
+            s_g, c_g, _, _ = pk.trajectories(
+                payoff, cfg, k, params, resolve_engine(None),
+                path_offset=offset, n_valid=n_total)
             n_pad = s_g.shape[1] * LANES
             ids = offset + jnp.arange(n_pad, dtype=jnp.uint32)
             return (s_g.reshape(n, n_pad), c_g.reshape(n, n_pad),
@@ -117,8 +117,7 @@ def price_american_sharded(option: OptionParams = DEMO_OPTION,
                            two_pass: bool = True,
                            exercise_every: int = 1,
                            tile_rows: int = 8,
-                           stream: int = 0,
-                           interpret: Optional[bool] = None) -> PriceResult:
+                           stream: int = 0) -> PriceResult:
     """Multi-chip two-pass Longstaff-Schwartz over a device mesh.
 
     Same estimator and streams as `mc_tpu.lsmc.price_american`; the
@@ -136,5 +135,5 @@ def price_american_sharded(option: OptionParams = DEMO_OPTION,
     key = jnp.asarray(rng.derive_key(sim.seed, stream), jnp.uint32)
     key_b = jnp.stack(rng.fold_key(key[0], key[1], 0x25A55))
     return _impl(option.as_f32(), po, sim.replace(seed=0), mesh, degree,
-                 tile_rows, exercise_every, two_pass, interpret, key,
+                 tile_rows, exercise_every, two_pass, key,
                  key_b)

@@ -1,22 +1,25 @@
-"""Multi-chip path sharding: the framework's distributed layer.
+"""Multi-device path sharding: the framework's distributed layer.
 
 The reference is single-GPU — its only cross-"device" combine is global
 memory atomics plus a host-side gather of per-block partials
 (``inc/wrappers.cuh:79-85``; SURVEY.md section 2 "Distributed communication
-backend: ABSENT").  The TPU equivalent is first-class here:
+backend: ABSENT").  Here it is first-class:
 
 * paths are data-parallel across a 1-D ``jax.sharding.Mesh`` axis
-  (``"paths"``) via ``shard_map`` — each chip runs the same fused Pallas
-  kernel on its own contiguous global path-id range;
-* the per-chip (8,128) moment accumulators are combined with
-  ``jax.lax.psum`` over ICI — the NCCL tier the reference never had;
+  (``"paths"``) via ``shard_map`` — each device runs the same fused kernel
+  on its own contiguous global path-id range;
+* the per-device (8,128) moment accumulators are combined with
+  ``jax.lax.psum``, which XLA hands to NCCL over NVLink — the collective
+  tier the reference never had;
 * counter-based RNG keyed by GLOBAL path id makes the result invariant to
-  the mesh size: pricing on 1 chip or 256 chips consumes the same stream
-  (verified bit-for-bit in tests/test_parallel.py), which is what makes
-  elastic restarts and shard-count changes safe.
+  the mesh size: pricing on 1 device or many consumes the same stream
+  (tests/test_parallel.py), which is what makes elastic restarts and
+  shard-count changes safe.  Only the summation order changes with the
+  mesh: each device Kahan-sums its own tiles and the psum adds the
+  per-device slabs, so the price agrees to float32 rounding of the sum.
 
-Works unchanged on a real v5p pod slice or on the 8-device virtual CPU
-mesh used by the test suite (conftest.py sets
+Works unchanged on the GPUs of one host (joined all to all by NVLink) or
+on the 8-device virtual CPU mesh used by the test suite (conftest.py sets
 ``--xla_force_host_platform_device_count=8``).
 """
 
@@ -33,7 +36,7 @@ from mc_tpu import rng
 from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES, cdiv, round_up
+from mc_tpu.ops._pallas import LANES, cdiv, resolve_engine, round_up
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 
@@ -47,10 +50,9 @@ def make_mesh(devices: Optional[Sequence] = None,
               axis: str = PATHS_AXIS) -> Mesh:
     """A 1-D mesh over all (or the given) devices.
 
-    The path dimension of an MC pricer is embarrassingly parallel, so one
-    flat axis is the right mesh for any slice shape — XLA lays the psum on
-    ICI rings automatically.  Multi-dim meshes only matter once a second
-    sharded tensor axis exists (see nmc.py for the outer x inner variant).
+    The path dimension of an MC pricer is embarrassingly parallel, and
+    every GPU of a host reaches every other at the same NVLink rate, so
+    one flat axis is the right mesh: the algorithm alone shapes it.
     """
     devices = list(devices) if devices is not None else jax.devices()
     return Mesh(devices, (axis,))
@@ -102,11 +104,11 @@ def _price_sharded_impl(option, payoff, sim, mesh, engine, antithetic,
         else:
             parts = _xla_partials(payoff, cfg, key, option, offset,
                                   n_valid=n_total)
-        # The ICI collective tier: one psum of n_out (8,128) slabs.
+        # The collective tier: one psum of n_out (8,128) slabs.
         return tuple(jax.lax.psum(p, PATHS_AXIS) for p in parts)
 
-    # check_vma=False: pallas_call out_shapes carry no varying-axis metadata
-    # yet, and correctness is pinned by the mesh-size-invariance tests.
+    # check_vma=False: pallas_call out_shapes carry no varying-axis metadata,
+    # and correctness is pinned by the mesh-size-invariance tests.
     parts = jax.shard_map(
         shard_fn, mesh=mesh,
         in_specs=(P(), P(), P()),
@@ -152,24 +154,29 @@ def price_sharded(option: OptionParams = DEMO_OPTION,
                   payoff="vanilla_call",
                   *,
                   mesh: Optional[Mesh] = None,
-                  engine: str = "pallas",
+                  engine: Optional[str] = None,
                   method: Optional[str] = None,
                   antithetic: bool = False,
                   control_variate: bool = False,
-                  tile_rows: int = 128,
+                  tile_rows: Optional[int] = None,
                   rng_source: str = "threefry13",
                   stream: int = 0,
                   key=None,
                   importance_shift: float = 0.0,
-                  interpret: Optional[bool] = None) -> PriceResult:
-    """Multi-chip Monte Carlo price: paths sharded over a device mesh.
+                  interpret: bool = False) -> PriceResult:
+    """Multi-device Monte Carlo price: paths sharded over a device mesh.
 
-    The billion-path configuration of BASELINE.json: each chip simulates a
-    contiguous global path-id range with the same fused kernel as the
-    single-chip `mc_tpu.price`, partial moments meet in one `psum` over
-    ICI, and the f64-grade finish happens once on the replicated result.
+    The billion-path configuration of BASELINE.json: each device simulates
+    a contiguous global path-id range with the same engine as the
+    single-device `mc_tpu.price` (``engine``/``tile_rows`` defaults as
+    there), partial moments meet in one `psum`, and the f64-grade finish
+    happens once on the replicated result.
     """
     mesh = mesh if mesh is not None else make_mesh()
+    engine = resolve_engine(engine, interpret)
+    if tile_rows is None:
+        tile_rows = pk.default_tile_rows(engine)
+    pk.check_rng_source(rng_source)
     po = get_payoff(payoff)
     if method is None:
         method = "terminal" if po.terminal_only else "euler"
@@ -185,31 +192,28 @@ def price_sharded(option: OptionParams = DEMO_OPTION,
 
 # ---------------------------------------------------------------------------
 # Sharded randomized QMC: the randomization axis (independent shifts) is
-# the natural multi-chip axis — each chip evaluates the FULL point set for
-# its share of shifts, so the per-shift means are bit-identical to the
-# single-chip ones and scaling raises the shift budget linearly (the
+# the natural multi-device axis — each device evaluates the FULL point set
+# for its share of shifts, so the per-shift means are bit-identical to the
+# single-device ones and scaling raises the shift budget linearly (the
 # documented way to grow a QMC budget: more shifts, not more points).
 # ---------------------------------------------------------------------------
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "n", "n_steps", "method", "engine",
-                     "tile_rows", "bridge", "family", "interpret", "mesh"))
-def _qmc_sharded_impl(option, payoff, n, n_steps, method, engine, tile_rows,
-                      bridge, family, interpret, mesh, zvec, shifts):
-    from mc_tpu.ops._pallas import use_interpret
+    static_argnames=("payoff", "n", "n_steps", "method", "tile_rows",
+                     "bridge", "family", "mesh"))
+def _qmc_sharded_impl(option, payoff, n, n_steps, method, tile_rows, bridge,
+                      family, mesh, zvec, shifts):
     from mc_tpu.qmc import _shift_mean_fn
 
-    if interpret is None:
-        interpret = use_interpret()
     cfg = pk.KernelConfig(n_paths=n, n_steps=n_steps, tile_rows=tile_rows,
                           method=method)
     params = pk.pack_params(option, n_steps)
 
     def shard_fn(zvec, shifts_local, params):
-        one_shift = _shift_mean_fn(payoff, cfg, option, params, zvec, n,
-                                   engine, bridge, family, interpret)
+        one_shift = _shift_mean_fn(payoff, cfg, option, zvec, n, bridge,
+                                   family)
         means_local = jax.lax.map(one_shift, shifts_local)
         return jax.lax.all_gather(means_local, PATHS_AXIS, tiled=True)
 
@@ -243,17 +247,15 @@ def price_qmc_sharded(option: OptionParams = DEMO_OPTION,
                       mesh: Optional[Mesh] = None,
                       n_shifts: int = 16,
                       method: Optional[str] = None,
-                      engine: str = "pallas",
                       family: str = "lattice",
                       tile_rows: int = 128,
                       gamma: float = 0.1,
                       bridge: bool = False,
-                      stream: int = 0,
-                      interpret: Optional[bool] = None) -> PriceResult:
-    """Multi-chip randomized QMC: shifts sharded over the mesh.
+                      stream: int = 0) -> PriceResult:
+    """Multi-device randomized QMC: shifts sharded over the mesh.
 
     ``n_shifts`` is rounded up to a multiple of the mesh size; per-shift
-    means are BIT-identical to `price_qmc`'s (each chip evaluates the full
+    means are BIT-identical to `price_qmc`'s (each device evaluates the full
     point set for its shifts), so at equal n_shifts the two APIs agree
     exactly regardless of mesh size.
     """
@@ -263,27 +265,26 @@ def price_qmc_sharded(option: OptionParams = DEMO_OPTION,
     n_shifts = cdiv(n_shifts, n_shards) * n_shards
     po = get_payoff(payoff)
     n, method, tile_rows, zvec, shifts = _qmc_pointset(
-        po, sim, n_shifts, method, engine, family, bridge, tile_rows,
-        gamma, stream, sim.seed)
+        po, sim, n_shifts, method, family, bridge, tile_rows, gamma,
+        stream, sim.seed)
     return _qmc_sharded_impl(option.as_f32(), po, n, sim.n_steps, method,
-                             engine, tile_rows, bridge, family, interpret,
-                             mesh, zvec, shifts)
+                             tile_rows, bridge, family, mesh, zvec, shifts)
 
 
 # ---------------------------------------------------------------------------
 # Sharded batched-book pricing: paths data-parallel over the mesh, the
-# whole B-contract book in one kernel per chip, one psum of the (B,8,128)
-# moment slabs over ICI.
+# whole B-contract book vmapped over the XLA engine per device, one psum of
+# the (B, 8, 128) moment slabs.
 # ---------------------------------------------------------------------------
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("payoff", "sim", "mesh", "method", "antithetic",
-                     "tile_rows", "interpret"))
+                     "tile_rows"))
 def _book_sharded_impl(opts32, payoff, sim, mesh, method, antithetic,
-                       tile_rows, interpret, key):
-    from mc_tpu.oracle import summarize as _summarize
+                       tile_rows, key):
+    from mc_tpu.engines import _xla_partials
 
     n_shards = mesh.devices.size
     n_local = shard_bounds(sim.n_paths, n_shards, tile_rows)
@@ -291,16 +292,13 @@ def _book_sharded_impl(opts32, payoff, sim, mesh, method, antithetic,
     cfg = pk.KernelConfig(n_paths=n_local, n_steps=sim.n_steps,
                           tile_rows=tile_rows, antithetic=antithetic,
                           method=method)
-    params_rows = jax.vmap(
-        lambda o: pk.pack_params(o, sim.n_steps))(opts32)
     n_total = jnp.uint32(sim.n_paths)
 
-    def shard_fn(key, params_rows, n_total):
+    def shard_fn(key, opts, n_total):
         rank = jax.lax.axis_index(PATHS_AXIS).astype(jnp.uint32)
         offset = rank * jnp.uint32(n_local)
-        sums, sqs = pk.simulate_book_partials(
-            payoff, cfg, b, key, params_rows, path_offset=offset,
-            n_valid=n_total, interpret=interpret)
+        sums, sqs = jax.vmap(lambda o: _xla_partials(
+            payoff, cfg, key, o, offset, n_valid=n_total))(opts)
         return (jax.lax.psum(sums, PATHS_AXIS),
                 jax.lax.psum(sqs, PATHS_AXIS))
 
@@ -309,14 +307,14 @@ def _book_sharded_impl(opts32, payoff, sim, mesh, method, antithetic,
         in_specs=(P(), P(), P()),
         out_specs=P(),
         check_vma=False,
-    )(key, params_rows, n_total)
+    )(key, opts32, n_total)
 
     s = jax.vmap(finish_sum)(sums)
     sq = jax.vmap(finish_sum)(sqs)
     r = jnp.asarray(opts32.r, jnp.float32)
     t = jnp.asarray(opts32.t, r.dtype)
     n = jnp.full((b,), sim.n_paths, jnp.float32)
-    return _summarize(s, sq, n, jnp.exp(-r * t))
+    return summarize(s, sq, n, jnp.exp(-r * t))
 
 
 def price_portfolio_sharded(options: OptionParams,
@@ -329,7 +327,8 @@ def price_portfolio_sharded(options: OptionParams,
                             tile_rows: int = 128,
                             stream: int = 0,
                             key=None) -> PriceResult:
-    """Multi-chip book pricing: paths sharded, one batched kernel per chip.
+    """Multi-device book pricing: paths sharded, the book vmapped per
+    device.
 
     Returns a PriceResult of (B,)-shaped arrays like `price_portfolio`;
     common random numbers across the whole book AND the whole mesh (the
@@ -342,7 +341,6 @@ def price_portfolio_sharded(options: OptionParams,
     if po.n_state > 0 and method == "terminal":
         raise ValueError(f"{po.name} is path-dependent; "
                          "method='terminal' invalid")
-    tile_rows = pk.book_tile_rows(tile_rows, sim.n_steps, method)
     if key is None:
         key = jnp.asarray(rng.derive_key(sim.seed, stream), jnp.uint32)
     opts32 = jax.tree_util.tree_map(
@@ -351,4 +349,4 @@ def price_portfolio_sharded(options: OptionParams,
     opts32 = jax.tree_util.tree_map(
         lambda x: jnp.broadcast_to(x, (b,)), opts32)
     return _book_sharded_impl(opts32, po, sim.replace(seed=0), mesh,
-                              method, antithetic, tile_rows, None, key)
+                              method, antithetic, tile_rows, key)

@@ -1,13 +1,12 @@
-"""Multi-chip pricing for the non-GBM model families.
+"""Multi-device pricing for the non-GBM model families.
 
-`mesh.price_sharded` shards the GBM kernels; this module extends the same
-construction — paths data-parallel over a 1-D mesh, per-chip fused Pallas
-kernels on contiguous GLOBAL path-id ranges, one (8,128)-slab `psum` over
-ICI, f64-grade finish on the replicated result — to every model family.
-Because every model kernel keys its counter-based RNG by global path id,
-the result is invariant to the mesh size and, on a 1-device mesh,
-BIT-identical to the single-chip `price_<model>` at equal tiling (pinned
-in tests/test_parallel.py).
+`mesh.price_sharded` shards the GBM engines; this module extends the same
+construction — paths data-parallel over a 1-D mesh, each device pricing a
+contiguous GLOBAL path-id range, one (8,128)-slab `psum`, f64-grade finish
+on the replicated result — to every model family.  Because every model
+keys its counter-based RNG by global path id, the result is invariant to
+the mesh size and, on a 1-device mesh, BIT-identical to the single-device
+`price_<model>` at equal tiling (pinned in tests/test_parallel.py).
 
 Round 3: the per-model dispatch is a REGISTRY (`_MODEL_DEFS`), not an
 elif chain — one `ShardedModel` row per family carries its stream tag,
@@ -31,7 +30,6 @@ from mc_tpu import rng
 from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.oracle import PriceResult, summarize
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import use_interpret
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.parallel.mesh import PATHS_AXIS, make_mesh, shard_bounds
 
@@ -40,12 +38,12 @@ __all__ = ["price_model_sharded", "SHARDED_MODELS"]
 
 @dataclasses.dataclass(frozen=True)
 class ShardedModel:
-    """One model family's multi-chip wiring.
+    """One model family's multi-device wiring.
 
     ``prepare(option, dyn, sim) -> (dyn, kmax)`` validates and returns
-    static extras; ``build(payoff, cfg, option, dyn32, n_steps, engine,
-    interpret, kmax) -> (params, partials)`` supplies the packed SMEM
-    vector and the per-shard partials function; ``discount(params, r, t)``
+    static extras; ``build(payoff, cfg, option, dyn32, n_steps, kmax) ->
+    (params, partials)`` supplies the packed parameter vector and the
+    per-shard partials function; ``discount(params, r, t)``
     the finish-side discount.
     """
 
@@ -68,18 +66,12 @@ def _def_heston():
         build=_build_heston)
 
 
-def _build_heston(payoff, cfg, option, dyn, n_steps, engine, interpret,
-                  kmax):
-    from mc_tpu.models.heston import (_heston_partials_pallas,
-                                      _heston_partials_xla, _pack_heston)
+def _build_heston(payoff, cfg, option, dyn, n_steps, kmax):
+    from mc_tpu.models.heston import _heston_partials, _pack_heston
     params = _pack_heston(option, dyn, n_steps)
 
     def partials(key, params, offset, bound):
-        if engine == "pallas":
-            return _heston_partials_pallas(payoff, cfg, key, params,
-                                           offset, bound, interpret)
-        return _heston_partials_xla(payoff, cfg, key, params, offset,
-                                    bound)
+        return _heston_partials(payoff, cfg, key, params, offset, bound)
 
     return params, partials
 
@@ -91,13 +83,12 @@ def _def_cev():
         even_steps=True)
 
 
-def _build_cev(payoff, cfg, option, dyn, n_steps, engine, interpret, kmax):
+def _build_cev(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.cev import _cev_partials, _pack_cev
     params = _pack_cev(option, dyn, n_steps)
 
     def partials(key, params, offset, bound):
-        return _cev_partials(payoff, cfg, key, params, offset, bound,
-                             engine, interpret)
+        return _cev_partials(payoff, cfg, key, params, offset, bound)
 
     return params, partials
 
@@ -115,14 +106,13 @@ def _def_merton():
         build=_build_merton, prepare=prepare, even_steps=True)
 
 
-def _build_merton(payoff, cfg, option, dyn, n_steps, engine, interpret,
-                  kmax):
+def _build_merton(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.merton import _merton_partials, _pack_merton
     params = _pack_merton(option, dyn, n_steps)
 
     def partials(key, params, offset, bound):
         return _merton_partials(payoff, cfg, kmax, key, params, offset,
-                                bound, engine, interpret)
+                                bound)
 
     return params, partials
 
@@ -140,14 +130,13 @@ def _def_bates():
         build=_build_bates, prepare=prepare)
 
 
-def _build_bates(payoff, cfg, option, dyn, n_steps, engine, interpret,
-                 kmax):
+def _build_bates(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.bates import _bates_partials, _pack_bates
     params = _pack_bates(option, dyn, n_steps)
 
     def partials(key, params, offset, bound):
         return _bates_partials(payoff, cfg, kmax, key, params, offset,
-                               bound, engine, interpret)
+                               bound)
 
     return params, partials
 
@@ -158,14 +147,12 @@ def _def_sabr():
         tag=0x5AB4, default_dyn=lambda sim: DEMO_SABR, build=_build_sabr)
 
 
-def _build_sabr(payoff, cfg, option, dyn, n_steps, engine, interpret,
-                kmax):
+def _build_sabr(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.sabr import _pack_sabr, _sabr_partials
     params = _pack_sabr(option, dyn, n_steps)
 
     def partials(key, params, offset, bound):
-        return _sabr_partials(payoff, cfg, key, params, offset, bound,
-                              engine, interpret)
+        return _sabr_partials(payoff, cfg, key, params, offset, bound)
 
     return params, partials
 
@@ -188,8 +175,7 @@ def _def_rainbow():
         resolve_payoff=_resolve_rainbow_payoff)
 
 
-def _build_rainbow(payoff, cfg, option, dyn, n_steps, engine, interpret,
-                   kmax):
+def _build_rainbow(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.basket import _basket_namespace, _pack_basket
     from mc_tpu.models.rainbow import _rainbow_partials
     d = int(dyn.s0s.shape[0])
@@ -198,7 +184,7 @@ def _build_rainbow(payoff, cfg, option, dyn, n_steps, engine, interpret,
     def partials(key, params, offset, bound):
         # `payoff` is the rainbow payoff NAME (static string)
         return _rainbow_partials(payoff, cfg, d, key, params, offset,
-                                 bound, engine, interpret)
+                                 bound)
 
     return params, partials
 
@@ -215,14 +201,13 @@ def _def_fx():
         terminal_only=True, resolve_payoff=_resolve_fx_contract)
 
 
-def _build_fx(payoff, cfg, option, dyn, n_steps, engine, interpret, kmax):
+def _build_fx(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.fx import _fx_partials, _pack_fx
     params = _pack_fx(option, dyn)
 
     def partials(key, params, offset, bound):
         # `payoff` is the fx CONTRACT name (static string)
-        return _fx_partials(payoff, cfg, key, params, offset, bound,
-                            engine, interpret)
+        return _fx_partials(payoff, cfg, key, params, offset, bound)
 
     return params, partials
 
@@ -235,14 +220,12 @@ def _def_vasicek():
         discount=lambda params, r, t: jnp.float32(1.0))  # pathwise
 
 
-def _build_vasicek(payoff, cfg, option, dyn, n_steps, engine, interpret,
-                   kmax):
+def _build_vasicek(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.vasicek import _pack_vasicek, _vasicek_partials
     params = _pack_vasicek(option, dyn, n_steps)
 
     def partials(key, params, offset, bound):
-        return _vasicek_partials(payoff, cfg, key, params, offset, bound,
-                                 engine, interpret)
+        return _vasicek_partials(payoff, cfg, key, params, offset, bound)
 
     return params, partials
 
@@ -268,14 +251,12 @@ def _def_term():
         discount=lambda params, r, t: jnp.exp(-params[9] * t))
 
 
-def _build_term(payoff, cfg, option, dyn, n_steps, engine, interpret,
-                kmax):
+def _build_term(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.term import _pack_term, _term_partials
     params = _pack_term(option, dyn, n_steps)
 
     def partials(key, params, offset, bound):
-        return _term_partials(payoff, cfg, key, params, offset, bound,
-                              engine, interpret)
+        return _term_partials(payoff, cfg, key, params, offset, bound)
 
     return params, partials
 
@@ -293,15 +274,14 @@ def _def_localvol():
         build=_build_localvol, prepare=prepare, even_steps=True)
 
 
-def _build_localvol(payoff, cfg, option, dyn, n_steps, engine, interpret,
-                    kmax):
+def _build_localvol(payoff, cfg, option, dyn, n_steps, kmax):
     from mc_tpu.models.localvol import _localvol_partials, _pack_localvol
     n_knots = int(dyn.x_knots.shape[0])
     params = _pack_localvol(option, dyn, n_steps)
 
     def partials(key, params, offset, bound):
         return _localvol_partials(payoff, cfg, n_knots, key, params,
-                                  offset, bound, engine, interpret)
+                                  offset, bound)
 
     return params, partials
 
@@ -325,12 +305,10 @@ def _model_def(model: str) -> ShardedModel:
 
 @functools.partial(
     jax.jit,
-    static_argnames=("model", "payoff", "sim", "mesh", "engine",
-                     "antithetic", "tile_rows", "interpret", "kmax"))
-def _model_sharded_impl(model, option, dyn, payoff, sim, mesh, engine,
-                        antithetic, tile_rows, interpret, key, kmax=0):
-    if interpret is None:
-        interpret = use_interpret()
+    static_argnames=("model", "payoff", "sim", "mesh", "antithetic",
+                     "tile_rows", "kmax"))
+def _model_sharded_impl(model, option, dyn, payoff, sim, mesh, antithetic,
+                        tile_rows, key, kmax=0):
     mdef = _model_def(model)
     n_shards = mesh.devices.size
     n_local = shard_bounds(sim.n_paths, n_shards, tile_rows)
@@ -338,7 +316,7 @@ def _model_sharded_impl(model, option, dyn, payoff, sim, mesh, engine,
     cfg = pk.KernelConfig(n_paths=n_local, n_steps=n_steps,
                           tile_rows=tile_rows, antithetic=antithetic)
     params, partials = mdef.build(payoff, cfg, option, dyn, sim.n_steps,
-                                  engine, interpret, kmax)
+                                  kmax)
     n_total = jnp.uint32(sim.n_paths)
 
     def shard_fn(key, params, n_total):
@@ -371,13 +349,11 @@ def price_model_sharded(model: str,
                         payoff=None,
                         *,
                         mesh: Optional[Mesh] = None,
-                        engine: str = "pallas",
                         antithetic: bool = False,
                         tile_rows: int = 128,
                         stream: int = 0,
-                        key=None,
-                        interpret: Optional[bool] = None) -> PriceResult:
-    """Multi-chip Monte Carlo price under a non-GBM model family.
+                        key=None) -> PriceResult:
+    """Multi-device Monte Carlo price under a non-GBM model family.
 
     ``model``: one of `SHARDED_MODELS`.  ``dyn`` defaults to the model's
     demo dynamics.  ``payoff=None`` picks the model's default contract
@@ -385,7 +361,7 @@ def price_model_sharded(model: str,
     those two families key payoffs in their OWN registries, so names
     like "vanilla_call" are rejected there rather than silently
     remapped).  The per-model stream tag
-    matches the single-chip `price_<model>` entry point, so a 1-device
+    matches the single-device `price_<model>` entry point, so a 1-device
     mesh reproduces it bitwise and larger meshes reproduce its
     statistics exactly (global-path-id keyed counters).
     """
@@ -412,6 +388,5 @@ def price_model_sharded(model: str,
         key = jnp.asarray(rng.derive_key(sim.seed, stream, mdef.tag),
                           jnp.uint32)
     return _model_sharded_impl(model, option.as_f32(), dyn.as_f32(), po,
-                               sim.replace(seed=0), mesh, engine,
-                               antithetic, tile_rows, interpret, key,
-                               kmax=kmax)
+                               sim.replace(seed=0), mesh, antithetic,
+                               tile_rows, key, kmax=kmax)

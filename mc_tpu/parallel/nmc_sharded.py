@@ -1,14 +1,14 @@
-"""Multi-chip nested Monte Carlo: outer-path axis sharded over the mesh.
+"""Multi-device nested Monte Carlo: outer-path axis sharded over the mesh.
 
-The TPU-native answer to the reference's C12 "optimal" task-decomposed
-scheduler (``nmc.cuh:280-386``): the reference balanced inner-path work
-across SMs by hand; here the whole (outer path x step x inner path)
+The answer to the reference's C12 "optimal" task-decomposed scheduler
+(``nmc.cuh:280-386``) across devices: the reference balanced inner-path
+work across SMs by hand; here the whole (outer path x step x inner path)
 iteration space is embarrassingly parallel along the outer-path axis, so
-chips each run the fused NMC kernel on their contiguous global path range
-— identical per-chip work by construction — and only the tiny outer-moment
-slabs cross ICI in one psum.  The surface stays sharded in place
-(one (n_steps, local_rows, 128) block per chip), which is exactly the
-layout a downstream exposure/Bermudan pipeline wants.
+devices each run the NMC engine on their contiguous global path range —
+identical per-device work by construction — and only the tiny
+outer-moment slabs cross devices in one psum.  The surface stays sharded
+in place (one (n_steps, local_rows, 128) block per device), which is
+exactly the layout a downstream exposure/Bermudan pipeline wants.
 """
 
 from __future__ import annotations
@@ -23,10 +23,11 @@ from jax.sharding import Mesh, PartitionSpec as P
 from mc_tpu import rng
 from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_INNER, STREAM_OUTER
-from mc_tpu.nmc import NMCResult, _xla_nmc
+from mc_tpu.nmc import NMCResult, nmc_partials
 from mc_tpu.oracle import summarize
 from mc_tpu.ops import nmc_kernels as nk
 from mc_tpu.ops import path_kernels as pk
+from mc_tpu.ops._pallas import resolve_engine
 from mc_tpu.ops.payoffs import get_payoff
 from mc_tpu.ops.reduce import finish_sum
 from mc_tpu.parallel.mesh import PATHS_AXIS, make_mesh, shard_bounds
@@ -51,13 +52,9 @@ def _impl(option, payoff, sim, mesh, engine, tile_rows, discount, interpret,
     def shard_fn(ko, ki, params, n_total):
         rank = jax.lax.axis_index(PATHS_AXIS).astype(jnp.uint32)
         offset = rank * jnp.uint32(n_local)
-        if engine == "pallas":
-            surf, osum, osq = nk.nmc_fused_kernel(
-                payoff, cfg, ko, ki, params, path_offset=offset,
-                n_valid=n_total, interpret=interpret)
-        else:
-            surf, osum, osq = _xla_nmc(payoff, cfg, ko, ki, option,
-                                       path_offset=offset, n_valid=n_total)
+        surf, _, osum, osq = nmc_partials(
+            payoff, cfg, engine, interpret, ko, ki, params, option,
+            path_offset=offset, n_valid=n_total)
         osum = jax.lax.psum(osum, PATHS_AXIS)
         osq = jax.lax.psum(osq, PATHS_AXIS)
         ssum = jax.lax.psum(jnp.sum(surf, dtype=jnp.float32), PATHS_AXIS)
@@ -87,23 +84,21 @@ def price_nmc_sharded(option: OptionParams = DEMO_OPTION,
                       payoff="bullet_call",
                       *,
                       mesh: Optional[Mesh] = None,
-                      engine: str = "pallas",
-                      tile_rows: Optional[int] = None,
+                      engine: Optional[str] = None,
+                      tile_rows: int = 8,
                       discount: str = "full",
                       key_outer=None,
                       key_inner=None,
-                      interpret: Optional[bool] = None) -> NMCResult:
+                      interpret: bool = False) -> NMCResult:
     """NMC price surface with outer paths sharded across the mesh.
 
     The surface comes back as a sharded (n_steps, global_rows, 128) array
     (each chip holds its own path range); outer price and surface mean are
-    replicated scalars.
+    replicated scalars.  ``engine`` as in `price_nmc`.
     """
     mesh = mesh if mesh is not None else make_mesh()
+    engine = resolve_engine(engine, interpret)
     po = get_payoff(payoff)
-    if tile_rows is None:
-        from mc_tpu.nmc import nmc_auto_tile_rows
-        tile_rows = nmc_auto_tile_rows(sim.n_steps)
     if po.n_state > 1:
         raise ValueError("NMC supports payoffs with at most one state array")
     if key_outer is None:
@@ -117,9 +112,9 @@ def price_nmc_sharded(option: OptionParams = DEMO_OPTION,
 
 
 # ---------------------------------------------------------------------------
-# Model-family NMC over the mesh (round 3): the generic engine's
-# path-offset plumbing makes every family's exposure surface shardable
-# with the same construction — one dispatcher over the family registry.
+# Model-family NMC over the mesh: the generic engine's path-offset
+# plumbing makes every family's exposure surface shardable with the same
+# construction — one dispatcher over the family registry.
 # ---------------------------------------------------------------------------
 
 def price_nmc_model_sharded(model: str,
@@ -129,15 +124,12 @@ def price_nmc_model_sharded(model: str,
                             payoff="vanilla_call",
                             *,
                             mesh: Optional[Mesh] = None,
-                            engine: str = "pallas",
-                            strategy: str = "grid",
-                            tile_rows: int = 8,
-                            interpret: Optional[bool] = None) -> NMCResult:
+                            tile_rows: int = 8) -> NMCResult:
     """Family NMC surface with outer paths sharded across the mesh.
 
     ``model``: any registered NMC family.  Streams key by GLOBAL path id,
     so the result is mesh-size invariant and a 1-device mesh is bitwise
-    identical to the single-chip `price_nmc_<model>`; the surface comes
+    identical to the single-device `price_nmc_<model>`; the surface comes
     back sharded along the path axis.
     """
     from mc_tpu.nmc_engine import (NMC_FAMILY_BUILDERS, ensure_family,
@@ -145,6 +137,4 @@ def price_nmc_model_sharded(model: str,
     ensure_family(model)
     fam, dyn32 = NMC_FAMILY_BUILDERS[model](option, dyn, sim)
     return price_nmc_family_sharded(fam, option, dyn32, sim, payoff,
-                                    mesh=mesh, engine=engine,
-                                    strategy=strategy, tile_rows=tile_rows,
-                                    interpret=interpret)
+                                    mesh=mesh, tile_rows=tile_rows)

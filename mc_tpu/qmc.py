@@ -38,7 +38,7 @@ from mc_tpu.config import DEMO_OPTION, DEMO_SIM, OptionParams, SimParams
 from mc_tpu.engines import STREAM_OUTER, _payoff_namespace
 from mc_tpu.oracle import PriceResult
 from mc_tpu.ops import path_kernels as pk
-from mc_tpu.ops._pallas import LANES, SUBLANES, use_interpret
+from mc_tpu.ops._pallas import LANES, SUBLANES
 from mc_tpu.ops.payoffs import get_payoff
 
 __all__ = ["price_qmc", "price_qmc_model", "price_qmc_model_sharded",
@@ -127,8 +127,8 @@ def lattice_vector(n: int, d: int, gamma: float = 0.1) -> np.ndarray:
 
 def _mod_int(x, n: int):
     """x mod n for int32 x in [0, 2^31), via float-assisted Barrett
-    reduction (Mosaic has no integer remainder op): q = floor(x/n) computed
-    in f32 is off by at most 1, fixed with two conditional corrections."""
+    reduction: q = floor(x/n) computed in f32 is off by at most 1, fixed
+    with two conditional corrections."""
     xf = x.astype(jnp.float32)
     q = jnp.floor(xf * jnp.float32(1.0 / n)).astype(jnp.int32)
     r = x - q * jnp.int32(n)
@@ -136,15 +136,13 @@ def _mod_int(x, n: int):
     return jnp.where(r >= jnp.int32(n), r - jnp.int32(n), r)
 
 
-def _lattice_u(ids, z_j, shift_j, n: int,
-               bitcast=jax.lax.bitcast_convert_type):
+def _lattice_u(ids, z_j, shift_j, n: int):
     """u = frac(i * z_j / n + shift_j), exact int32 modular arithmetic.
 
-    The 10-bit split keeps every intermediate below 2^31 for n <= 2^20;
-    int32 (not uint32) because Mosaic supports neither u32->f32 casts nor
-    an integer remainder — see `_mod_int`.
+    The 10-bit split keeps every intermediate below 2^31 for n <= 2^20.
     """
-    ids_i = bitcast(ids, jnp.int32)           # values < 2^20: same value
+    # values < 2^20: the same value as int32
+    ids_i = jax.lax.bitcast_convert_type(ids, jnp.int32)
     z = jnp.asarray(z_j, jnp.int32)           # zvec is passed as int32
     z1 = jax.lax.shift_right_logical(z, jnp.int32(10))
     z0 = jnp.bitwise_and(z, jnp.int32(1023))
@@ -196,7 +194,7 @@ def sobol_directions(d: int) -> np.ndarray:
     Sourced from scipy.stats.qmc.Sobol's initialized direction-number
     matrix (the new-Joe-Kuo-6 table, up to 21201 dimensions) — the same
     numbers every production Sobol implementation ships.  Host-side only;
-    kernels receive the flattened table in SMEM.
+    the pricers receive the flattened table.
     """
     from scipy.stats import qmc as _sqmc
     sv = np.asarray(_sqmc.Sobol(d=d, scramble=False)._sv, np.uint32)
@@ -205,7 +203,7 @@ def sobol_directions(d: int) -> np.ndarray:
     return sv
 
 
-def _sobol_u(ids, sv_ref, dshift_ref, j, bitcast):
+def _sobol_u(ids, sv_ref, dshift_ref, j):
     """Digitally-shifted Sobol coordinate u_{i,j} in [0, 1).
 
     Direct (non-iterative) Gray-code formula, so point i is a pure
@@ -213,9 +211,9 @@ def _sobol_u(ids, sv_ref, dshift_ref, j, bitcast):
     x_{i,j} = XOR_k bit_k(i ^ (i >> 1)) * v_{j,k}, then XOR the per-dim
     30-bit random digital shift (the digital-net analogue of the lattice
     Cranley-Patterson rotation - unbiased, preserves the net structure).
-    All arithmetic in int32: values stay < 2^30 (Mosaic has no u32->f32).
+    All arithmetic in int32: values stay < 2^30.
     """
-    ids_i = bitcast(ids, jnp.int32)
+    ids_i = jax.lax.bitcast_convert_type(ids, jnp.int32)
     gray = jax.lax.bitwise_xor(
         ids_i, jax.lax.shift_right_logical(ids_i, jnp.int32(1)))
     acc = jnp.zeros_like(ids_i)
@@ -225,11 +223,12 @@ def _sobol_u(ids, sv_ref, dshift_ref, j, bitcast):
             jax.lax.shift_right_logical(gray, jnp.int32(k)), jnp.int32(1))
         acc = jax.lax.bitwise_xor(acc, sv_ref[base + jnp.int32(k)] * bit)
     acc = jax.lax.bitwise_xor(acc, dshift_ref[j])
-    bits32 = bitcast(jax.lax.shift_left(acc, jnp.int32(2)), jnp.uint32)
-    return rng.bits_to_unit(bits32, bitcast)
+    bits32 = jax.lax.bitcast_convert_type(
+        jax.lax.shift_left(acc, jnp.int32(2)), jnp.uint32)
+    return rng.bits_to_unit(bits32)
 
 
-def _point_u_factory(family: str, zvec_ref, shift_ref, n: int, bitcast):
+def _point_u_factory(family: str, zvec_ref, shift_ref, n: int):
     """u(ids, j): coordinate j of point-set ``family`` for path-id tile.
 
     lattice: zvec_ref = generating vector, shift_ref = f32 uniform shifts.
@@ -237,18 +236,16 @@ def _point_u_factory(family: str, zvec_ref, shift_ref, n: int, bitcast):
              (d,) int32 digital shifts.
     """
     if family == "lattice":
-        return lambda ids, j: _lattice_u(ids, zvec_ref[j], shift_ref[j], n,
-                                         bitcast)
+        return lambda ids, j: _lattice_u(ids, zvec_ref[j], shift_ref[j], n)
     if family == "sobol":
-        return lambda ids, j: _sobol_u(ids, zvec_ref, shift_ref, j, bitcast)
+        return lambda ids, j: _sobol_u(ids, zvec_ref, shift_ref, j)
     raise ValueError(f"unknown QMC family {family!r}")
 
 
 def _qmc_draw_pair_factory(ids, zvec_ref, shift_ref, n: int, method: str,
-                           bitcast=jax.lax.bitcast_convert_type,
                            family: str = "lattice"):
     """draw_pair(m) -> inverse-CDF normals for dimensions (2m, 2m+1)."""
-    u_fn = _point_u_factory(family, zvec_ref, shift_ref, n, bitcast)
+    u_fn = _point_u_factory(family, zvec_ref, shift_ref, n)
 
     def draw_pair(m):
         m2 = jnp.asarray(m, jnp.int32) * 2
@@ -299,8 +296,7 @@ def _bridge_normals_xla(ids, zvec, shifts, n, n_steps, bidx, bcoef,
     (n_steps, *ids.shape) with z_j = W[j+1] - W[j]."""
     shape = ids.shape
     w = jnp.zeros((n_steps + 1,) + shape, jnp.float32)
-    u_fn = _point_u_factory(family, zvec, shifts, n,
-                            jax.lax.bitcast_convert_type)
+    u_fn = _point_u_factory(family, zvec, shifts, n)
 
     def entry(k, w):
         z = rng.inv_normal_cdf(u_fn(ids, k))
@@ -342,145 +338,7 @@ def _xla_qmc_bridge_shift_sum(payoff, cfg, option, zvec, shifts, n, bidx,
     return jnp.sum(acc.astype(jnp.float32))
 
 
-def _make_qmc_bridge_kernel(payoff, cfg: pk.KernelConfig, n: int,
-                            family: str = "lattice"):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(zvec_ref, shift_ref, params_ref, bidx_ref, bcoef_ref,
-               acc_ref, comp_ref, w_ref):
-        p = pk.unpack_params(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = base + flat
-        valid = ids < jnp.uint32(n)
-
-        # Build the bridge in VMEM scratch: W[0] = 0, entries in BFS order.
-        w_ref[0] = jnp.zeros(shape, jnp.float32)
-
-        u_fn = _point_u_factory(family, zvec_ref, shift_ref, n,
-                                pltpu.bitcast)
-
-        def entry(k, _):
-            z = rng.inv_normal_cdf(u_fn(ids, k))
-            m, l, r = bidx_ref[k, 0], bidx_ref[k, 1], bidx_ref[k, 2]
-            w_ref[m] = (bcoef_ref[k, 0] * w_ref[l]
-                        + bcoef_ref[k, 1] * w_ref[r]
-                        + bcoef_ref[k, 2] * z)
-            return 0
-
-        jax.lax.fori_loop(0, cfg.n_steps, entry, 0)
-
-        def draw_pair(m):
-            # clamp the second index: the odd-n_steps epilogue discards the
-            # second half, and an out-of-bounds ref read is undefined in a
-            # compiled Mosaic kernel even when unused
-            hi = jnp.minimum(2 * m + 2, cfg.n_steps)
-            return (w_ref[2 * m + 1] - w_ref[2 * m],
-                    w_ref[hi] - w_ref[2 * m + 1])
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        pay, _ = pk._payoff_leg(payoff, cfg, p, s0, draw_pair)
-        pay = jnp.where(valid, pay, 0.0)
-
-        @pl.when(i == 0)
-        def _():
-            acc_ref[:] = jnp.zeros_like(acc_ref)
-            comp_ref[:] = jnp.zeros_like(comp_ref)
-
-        p8 = pk._fold_to_sublanes(pay, cfg.tile_rows)
-        acc = acc_ref[:]
-        y = p8 - comp_ref[0]
-        t = acc + y
-        comp_ref[0] = (t - acc) - y
-        acc_ref[:] = t
-
-    return kernel
-
-
-def _pallas_qmc_bridge_shift_sum(payoff, cfg, params, zvec, shifts, n,
-                                 bidx, bcoef, interpret,
-                                 family: str = "lattice"):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    acc = pl.pallas_call(
-        _make_qmc_bridge_kernel(payoff, cfg, n, family),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 5,
-        out_specs=pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((1, SUBLANES, LANES), jnp.float32),
-            pltpu.VMEM((cfg.n_steps + 1, cfg.tile_rows, LANES), jnp.float32),
-        ],
-        interpret=interpret,
-    )(zvec, shifts, params, bidx, bcoef)
-    return jnp.sum(acc)
-
-
-def _make_qmc_kernel(payoff, cfg: pk.KernelConfig, n: int,
-                     family: str = "lattice"):
-    from jax.experimental import pallas as pl  # local: kernel-build only
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(zvec_ref, shift_ref, params_ref, acc_ref, comp_ref):
-        p = pk.unpack_params(params_ref)
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = base + flat
-        valid = ids < jnp.uint32(n)
-        from jax.experimental.pallas import tpu as _pltpu
-        draw_pair = _qmc_draw_pair_factory(ids, zvec_ref, shift_ref, n,
-                                           cfg.method,
-                                           bitcast=_pltpu.bitcast,
-                                           family=family)
-        s0 = jnp.full(shape, p.s0, jnp.float32)
-        pay, _ = pk._payoff_leg(payoff, cfg, p, s0, draw_pair)
-        pay = jnp.where(valid, pay, 0.0)
-
-        @pl.when(i == 0)
-        def _():
-            acc_ref[:] = jnp.zeros_like(acc_ref)
-            comp_ref[:] = jnp.zeros_like(comp_ref)
-
-        p8 = pk._fold_to_sublanes(pay, cfg.tile_rows)
-        acc = acc_ref[:]
-        y = p8 - comp_ref[0]
-        t = acc + y
-        comp_ref[0] = (t - acc) - y
-        acc_ref[:] = t
-
-    return kernel
-
-
-def _pallas_qmc_shift_sum(payoff, cfg: pk.KernelConfig, params, zvec,
-                          shifts, n: int, interpret,
-                          family: str = "lattice"):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    acc = pl.pallas_call(
-        _make_qmc_kernel(payoff, cfg, n, family),
-        grid=(cfg.n_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((SUBLANES, LANES), jnp.float32),
-        scratch_shapes=[pltpu.VMEM((1, SUBLANES, LANES), jnp.float32)],
-        interpret=interpret,
-    )(zvec, shifts, params)
-    return jnp.sum(acc)
-
-
-def _shift_mean_fn(payoff, cfg, option, params, zvec, n, engine, bridge,
-                   family, interpret):
+def _shift_mean_fn(payoff, cfg, option, zvec, n, bridge, family):
     """one_shift(shift) -> per-shift payoff mean; the ONE dispatch shared
     by the single-chip impl and the shift-sharded multi-chip impl."""
     if bridge:
@@ -489,16 +347,9 @@ def _shift_mean_fn(payoff, cfg, option, params, zvec, n, engine, bridge,
         bcoef = jnp.asarray(bcoef_np)
 
     def one_shift(shift):
-        if bridge and engine == "pallas":
-            s = _pallas_qmc_bridge_shift_sum(payoff, cfg, params, zvec,
-                                             shift, n, bidx, bcoef,
-                                             interpret, family)
-        elif bridge:
+        if bridge:
             s = _xla_qmc_bridge_shift_sum(payoff, cfg, option, zvec, shift,
                                           n, bidx, bcoef, family)
-        elif engine == "pallas":
-            s = _pallas_qmc_shift_sum(payoff, cfg, params, zvec, shift, n,
-                                      interpret, family)
         else:
             s = _xla_qmc_shift_sum(payoff, cfg, option, zvec, shift, n,
                                    family)
@@ -509,17 +360,13 @@ def _shift_mean_fn(payoff, cfg, option, params, zvec, n, engine, bridge,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("payoff", "n", "n_steps", "method", "engine",
-                     "tile_rows", "bridge", "interpret", "family"))
-def _price_qmc_impl(option, payoff, n, n_steps, method, engine, tile_rows,
-                    bridge, interpret, zvec, shifts, family="lattice"):
-    if interpret is None:
-        interpret = use_interpret()
+    static_argnames=("payoff", "n", "n_steps", "method", "tile_rows",
+                     "bridge", "family"))
+def _price_qmc_impl(option, payoff, n, n_steps, method, tile_rows, bridge,
+                    zvec, shifts, family="lattice"):
     cfg = pk.KernelConfig(n_paths=n, n_steps=n_steps, tile_rows=tile_rows,
                           method=method)
-    params = pk.pack_params(option, n_steps)
-    one_shift = _shift_mean_fn(payoff, cfg, option, params, zvec, n,
-                               engine, bridge, family, interpret)
+    one_shift = _shift_mean_fn(payoff, cfg, option, zvec, n, bridge, family)
     means = jax.lax.map(one_shift, shifts)          # (R,) per-shift means
     r_reps = shifts.shape[0]
     mean = jnp.mean(means)
@@ -536,13 +383,11 @@ def _price_qmc_impl(option, payoff, n, n_steps, method, engine, tile_rows,
     )
 
 
-def _qmc_pointset(po, sim, n_shifts, method, engine, family, bridge,
-                  tile_rows, gamma, stream, seed):
+def _qmc_pointset(po, sim, n_shifts, method, family, bridge, tile_rows,
+                  gamma, stream, seed):
     """Validated point-set construction shared by price_qmc and the
     sharded API (one code path keeps their bitwise-equality contract
     safe): returns (n, method, tile_rows, zvec, shifts)."""
-    if engine not in ("pallas", "xla"):
-        raise ValueError(f"unknown engine {engine!r}; use 'pallas' or 'xla'")
     if family not in ("lattice", "sobol"):
         raise ValueError(f"unknown QMC family {family!r}")
     if method is None:
@@ -560,15 +405,10 @@ def _qmc_pointset(po, sim, n_shifts, method, engine, family, bridge,
         n = prev_prime(sim.n_paths)
     d = 1 if method == "terminal" else sim.n_steps
     if bridge:
-        # The bridge kernel holds a (n_steps+1, tile_rows, 128) f32 VMEM
-        # scratch; cap tile_rows at a ~4 MB budget.  Past ~1000 steps not
-        # even 8 rows fit — fail loudly instead of blowing VMEM.
+        # The bridge holds a (n_steps+1, tile_rows, 128) f32 buffer per
+        # tile; cap tile_rows at a ~4 MB budget.
         cap = (8192 // (sim.n_steps + 1)) // 8 * 8
-        if cap < 8:
-            raise ValueError(
-                f"bridge=True needs a (n_steps+1, 8, 128) VMEM scratch; "
-                f"n_steps={sim.n_steps} exceeds the budget (max ~1023)")
-        tile_rows = min(tile_rows, cap)
+        tile_rows = max(8, min(tile_rows, cap))
 
     key = rng.derive_key(seed, stream, 0x51AC)
     sidx = jnp.arange(n_shifts * d, dtype=jnp.uint32)
@@ -576,12 +416,12 @@ def _qmc_pointset(po, sim, n_shifts, method, engine, family, bridge,
                                sidx, jnp.zeros_like(sidx))
     if family == "sobol":
         # flattened (d*30,) direction table + (R, d) 30-bit digital shifts
-        # — int32 throughout (values < 2^30; Mosaic has no u32 scalars).
+        # — int32 throughout (values < 2^30).
         zvec = jnp.asarray(sobol_directions(d).reshape(-1).astype(np.int32))
         shifts = jax.lax.shift_right_logical(
             bits, jnp.uint32(2)).astype(jnp.int32).reshape(n_shifts, d)
     else:
-        # int32 (values < 2^20): Mosaic kernels cannot cast u32 scalars
+        # int32 (values < 2^20)
         zvec = jnp.asarray(lattice_vector(n, d, gamma).astype(np.int32))
         shifts = rng.bits_to_unit(bits).reshape(n_shifts, d)
     return n, method, tile_rows, zvec, shifts
@@ -593,13 +433,11 @@ def price_qmc(option: OptionParams = DEMO_OPTION,
               *,
               n_shifts: int = 16,
               method: Optional[str] = None,
-              engine: str = "pallas",
               family: str = "lattice",
               tile_rows: int = 128,
               gamma: float = 0.1,
               bridge: bool = False,
-              stream: int = STREAM_OUTER,
-              interpret: Optional[bool] = None) -> PriceResult:
+              stream: int = STREAM_OUTER) -> PriceResult:
     """Randomized-QMC price with `n_shifts` independent randomizations.
 
     family="lattice" (default): rank-1 lattice of the largest prime
@@ -609,17 +447,16 @@ def price_qmc(option: OptionParams = DEMO_OPTION,
     the digital-net analogue of the rotation, equally unbiased.
     Raise n_shifts rather than n for bigger budgets — total samples =
     n * n_shifts.  stderr comes from the spread of the independent
-    randomized estimates.  Points are generated in-kernel from the path
-    id for both families (direct Gray-code formula for Sobol — no point
+    randomized estimates.  Points are generated from the path id for
+    both families (direct Gray-code formula for Sobol — no point
     matrix in memory).
     """
     po = get_payoff(payoff)
     n, method, tile_rows, zvec, shifts = _qmc_pointset(
-        po, sim, n_shifts, method, engine, family, bridge, tile_rows,
-        gamma, stream, sim.seed)
+        po, sim, n_shifts, method, family, bridge, tile_rows, gamma,
+        stream, sim.seed)
     return _price_qmc_impl(option.as_f32(), po, n, sim.n_steps, method,
-                           engine, tile_rows, bridge, interpret, zvec,
-                           shifts, family)
+                           tile_rows, bridge, zvec, shifts, family)
 
 
 # ---------------------------------------------------------------------------
@@ -634,7 +471,7 @@ def price_qmc(option: OptionParams = DEMO_OPTION,
 def _model_qmc_hooks(model: str, dyn, n_steps: int, t: float = 1.0,
                      kmax: int = 0):
     """(pack, leg, n_dims) for a QMC-capable model family; ``leg``
-    takes the PACKED params (SMEM ref in-kernel, array in the dual)."""
+    takes the PACKED params vector."""
     if model == "heston":
         from mc_tpu.models.heston import (_heston_leg, _pack_heston,
                                           _unpack_heston)
@@ -787,69 +624,16 @@ def _model_qmc_discount(model, option, dyn):
     return jnp.exp(-jnp.asarray(option.r, jnp.float32) * t)
 
 
-def _make_qmc_model_kernel(model, payoff, cfg: pk.KernelConfig, n: int,
-                           leg, family: str):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(zvec_ref, shift_ref, params_ref, acc_ref, comp_ref):
-        i = pl.program_id(0)
-        shape = (cfg.tile_rows, LANES)
-        base = jnp.uint32(i * cfg.paths_per_tile)
-        flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
-        ids = base + flat
-        valid = ids < jnp.uint32(n)
-        draw_pair = _qmc_draw_pair_factory(ids, zvec_ref, shift_ref, n,
-                                           "euler", bitcast=pltpu.bitcast,
-                                           family=family)
-        pay = jnp.where(valid, leg(payoff, params_ref, ids, draw_pair),
-                        0.0)
-
-        @pl.when(i == 0)
-        def _():
-            acc_ref[:] = jnp.zeros_like(acc_ref)
-            comp_ref[:] = jnp.zeros_like(comp_ref)
-
-        p8 = pk._fold_to_sublanes(pay, cfg.tile_rows)
-        acc = acc_ref[:]
-        y = p8 - comp_ref[0]
-        t = acc + y
-        comp_ref[0] = (t - acc) - y
-        acc_ref[:] = t
-
-    return kernel
-
-
 def _model_shift_mean_fn(model, payoff, cfg, params, leg, zvec, n,
-                         engine, family, interpret):
+                         family):
     """one_shift(shift) -> per-shift payoff mean for a model family —
-    shared by the single-chip impl and the shift-sharded multi-chip
+    shared by the single-device impl and the shift-sharded multi-device
     impl (one code path keeps their bitwise-equality contract safe)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
     shape = (cfg.tile_rows, LANES)
     flat = (jax.lax.broadcasted_iota(jnp.uint32, shape, 0) * LANES
             + jax.lax.broadcasted_iota(jnp.uint32, shape, 1))
 
     def one_shift(shift):
-        if engine == "pallas":
-            acc = pl.pallas_call(
-                _make_qmc_model_kernel(model, payoff, cfg, n, leg,
-                                       family),
-                grid=(cfg.n_tiles,),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-                out_specs=pl.BlockSpec((SUBLANES, LANES), lambda i: (0, 0),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((SUBLANES, LANES),
-                                               jnp.float32),
-                scratch_shapes=[pltpu.VMEM((1, SUBLANES, LANES),
-                                           jnp.float32)],
-                interpret=interpret,
-            )(zvec, shift, params)
-            return jnp.sum(acc) / jnp.float32(n)
-
         def one_tile(carry, i):
             acc, comp = carry
             ids = jnp.uint32(i * cfg.paths_per_tile) + flat
@@ -875,19 +659,16 @@ def _model_shift_mean_fn(model, payoff, cfg, params, leg, zvec, n,
 @functools.partial(
     jax.jit,
     static_argnames=("model", "payoff", "n", "n_steps", "d_assets",
-                     "engine", "tile_rows", "interpret", "family",
-                     "t_static", "kmax_static"))
+                     "tile_rows", "family", "t_static", "kmax_static"))
 def _price_qmc_model_impl(model, option, dyn, payoff, n, n_steps,
-                          d_assets, engine, tile_rows, interpret, zvec,
-                          shifts, family, t_static=1.0, kmax_static=0):
-    if interpret is None:
-        interpret = use_interpret()
+                          d_assets, tile_rows, zvec, shifts, family,
+                          t_static=1.0, kmax_static=0):
     pack, leg, n_dims = _model_qmc_hooks(model, dyn, n_steps, t_static,
                                          kmax_static)
     cfg = pk.KernelConfig(n_paths=n, n_steps=n_steps, tile_rows=tile_rows)
     params = pack(option, dyn, n_steps)
     one_shift = _model_shift_mean_fn(model, payoff, cfg, params, leg,
-                                     zvec, n, engine, family, interpret)
+                                     zvec, n, family)
     means = jax.lax.map(one_shift, shifts)
     r_reps = shifts.shape[0]
     mean = jnp.mean(means)
@@ -906,12 +687,10 @@ def price_qmc_model(model: str,
                     payoff="vanilla_call",
                     *,
                     n_shifts: int = 16,
-                    engine: str = "pallas",
                     family: str = "sobol",
                     tile_rows: int = 128,
                     gamma: float = 0.1,
-                    stream: int = STREAM_OUTER,
-                    interpret: Optional[bool] = None) -> PriceResult:
+                    stream: int = STREAM_OUTER) -> PriceResult:
     """Randomized-QMC price under a model family ("heston" | "bates" |
     "basket" | "cev" | "sabr" | "localvol" | "vasicek" | "merton" |
     "term").
@@ -925,8 +704,7 @@ def price_qmc_model(model: str,
     in `price_qmc`.
     """
     po, dyn32, d_assets, n, zvec, shifts = _qmc_model_pointset(
-        model, option, dyn, sim, payoff=payoff, n_shifts=n_shifts,
-        engine=engine, family=family, tile_rows=tile_rows, gamma=gamma,
+        model, option, dyn, sim, payoff=payoff, n_shifts=n_shifts, family=family, tile_rows=tile_rows, gamma=gamma,
         stream=stream)
     kmax = 0
     if model in ("merton", "bates"):
@@ -934,14 +712,14 @@ def price_qmc_model(model: str,
         kmax = poisson_kmax(float(dyn32.lam) * float(option.t)
                             / sim.n_steps)
     return _price_qmc_model_impl(model, option.as_f32(), dyn32, po, n,
-                                 sim.n_steps, d_assets, engine, tile_rows,
-                                 interpret, zvec, shifts, family,
+                                 sim.n_steps, d_assets, tile_rows,
+                                 zvec, shifts, family,
                                  t_static=float(option.t),
                                  kmax_static=kmax)
 
 
 def _qmc_model_pointset(model, option, dyn, sim, *, payoff, n_shifts,
-                        engine, family, tile_rows, gamma, stream):
+                        family, tile_rows, gamma, stream):
     """Validated model point-set construction shared by the single-chip
     and shift-sharded entries (one code path keeps their per-shift
     bitwise-equality contract safe)."""
@@ -1011,9 +789,6 @@ def _qmc_model_pointset(model, option, dyn, sim, *, payoff, n_shifts,
         raise ValueError(f"QMC model must be one of 'heston', 'bates', "
                          f"'basket', 'cev', 'sabr', 'localvol', "
                          f"'vasicek', 'merton', 'term'; got {model!r}")
-    if engine not in ("pallas", "xla"):
-        raise ValueError(f"unknown engine {engine!r}; use 'pallas' or "
-                         "'xla'")
     if family not in ("lattice", "sobol"):
         raise ValueError(f"unknown QMC family {family!r}")
     if n_shifts < 2:
@@ -1043,18 +818,16 @@ def _qmc_model_pointset(model, option, dyn, sim, *, payoff, n_shifts,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("model", "payoff", "n", "n_steps", "engine",
-                     "tile_rows", "interpret", "family", "mesh",
+    static_argnames=("model", "payoff", "n", "n_steps",
+                     "tile_rows", "family", "mesh",
                      "t_static", "kmax_static"))
 def _qmc_model_sharded_impl(model, option, dyn, payoff, n, n_steps,
-                            engine, tile_rows, interpret, mesh, zvec,
+                            tile_rows, mesh, zvec,
                             shifts, family, t_static=1.0, kmax_static=0):
     from jax.sharding import PartitionSpec as P
 
     from mc_tpu.parallel.mesh import PATHS_AXIS
 
-    if interpret is None:
-        interpret = use_interpret()
     pack, leg, n_dims = _model_qmc_hooks(model, dyn, n_steps, t_static,
                                          kmax_static)
     cfg = pk.KernelConfig(n_paths=n, n_steps=n_steps, tile_rows=tile_rows)
@@ -1062,8 +835,7 @@ def _qmc_model_sharded_impl(model, option, dyn, payoff, n, n_steps,
 
     def shard_fn(zvec, shifts_local, params):
         one_shift = _model_shift_mean_fn(model, payoff, cfg, params, leg,
-                                         zvec, n, engine, family,
-                                         interpret)
+                                         zvec, n, family)
         means_local = jax.lax.map(one_shift, shifts_local)
         return jax.lax.all_gather(means_local, PATHS_AXIS, tiled=True)
 
@@ -1092,12 +864,10 @@ def price_qmc_model_sharded(model: str,
                             *,
                             mesh=None,
                             n_shifts: int = 16,
-                            engine: str = "pallas",
                             family: str = "sobol",
                             tile_rows: int = 128,
                             gamma: float = 0.1,
-                            stream: int = STREAM_OUTER,
-                            interpret: Optional[bool] = None
+                            stream: int = STREAM_OUTER
                             ) -> PriceResult:
     """Model-family randomized QMC with shifts sharded over the mesh.
 
@@ -1112,7 +882,7 @@ def price_qmc_model_sharded(model: str,
     n_shifts = _cdiv(n_shifts, mesh.devices.size) * mesh.devices.size
     # reuse the single-chip entry's validation + point-set construction
     # by building it at the rounded shift count, then dispatch sharded
-    kwargs = dict(payoff=payoff, n_shifts=n_shifts, engine=engine,
+    kwargs = dict(payoff=payoff, n_shifts=n_shifts,
                   family=family, tile_rows=tile_rows, gamma=gamma,
                   stream=stream)
     po, dyn32, d_assets, n, zvec, shifts = _qmc_model_pointset(
@@ -1123,7 +893,7 @@ def price_qmc_model_sharded(model: str,
         kmax = poisson_kmax(float(dyn32.lam) * float(option.t)
                             / sim.n_steps)
     return _qmc_model_sharded_impl(model, option.as_f32(), dyn32, po, n,
-                                   sim.n_steps, engine, tile_rows,
-                                   interpret, mesh, zvec, shifts, family,
+                                   sim.n_steps, tile_rows,
+                                   mesh, zvec, shifts, family,
                                    t_static=float(option.t),
                                    kmax_static=kmax)

@@ -4,12 +4,12 @@ option book over joint (spot, vol, rate) shocks.
 The reference prices one contract once and prints it
 (`/root/reference/hello.cu:3-48`); a production desk also needs the
 DISTRIBUTION of book P&L over market scenarios — Value-at-Risk and
-Expected Shortfall under joint spot/vol/rate moves.  The TPU shape of
-that workload: revaluing M scenarios x B contracts is ONE batched
-kernel call.  Scenario-bumped `OptionParams` rows — (M+1)*B contracts,
-the unshocked base book first — ride the existing batched-book engine
-(`engines.price_portfolio`, one `vmap`med program or one Mosaic book
-kernel) under common random numbers, so every scenario revaluation
+Expected Shortfall under joint spot/vol/rate moves.  The accelerator
+shape of that workload: revaluing M scenarios x B contracts is ONE
+batched program.  Scenario-bumped `OptionParams` rows — (M+1)*B
+contracts, the unshocked base book first — ride the existing
+batched-book engine (`engines.price_portfolio`, one `vmap`med program)
+under common random numbers, so every scenario revaluation
 shares the SAME threefry draws and the P&L differences are
 pathwise-smooth (MC noise cancels between base and bumped rows).
 
@@ -17,7 +17,7 @@ Three revaluation modes cross-gate each other:
 
 - ``method="mc"``      full MC revaluation (any terminal payoff the
                        portfolio engine supports; ``mesh=`` shards the
-                       path axis across chips);
+                       path axis across devices);
 - ``method="oracle"``  float64 Black-Scholes closed-form revaluation
                        (vanilla_call / vanilla_put books) — the exact
                        reference the MC mode is gated against;
@@ -50,6 +50,7 @@ __all__ = ["ScenarioSet", "CurveScenarioSet", "RiskResult",
            "model_scenario_pnl",
            "hw_swaption_curve_pnl", "g2_swaption_curve_pnl",
            "delta_gamma_pnl", "var_es"]
+
 
 _SQRT2 = math.sqrt(2.0)
 _erf = np.vectorize(math.erf)
@@ -213,7 +214,6 @@ def book_scenario_pnl(options: OptionParams = OptionParams(),
                       scenarios: ScenarioSet,
                       weights=None,
                       method: str = "mc",
-                      engine: str = "xla",
                       antithetic: bool = False,
                       mesh=None,
                       tile_rows: int = 128,
@@ -287,7 +287,7 @@ def book_scenario_pnl(options: OptionParams = OptionParams(),
                                           tile_rows=tile_rows,
                                           stream=stream)
         else:
-            res = price_portfolio(big, sim, payoff, engine=engine,
+            res = price_portfolio(big, sim, payoff,
                                   antithetic=antithetic,
                                   tile_rows=tile_rows, stream=stream)
         vals = np.asarray(res.price, np.float64).reshape(m + 1, b)
@@ -314,7 +314,7 @@ def _heston_ladder_impl(payoff, n_paths, n_steps, tile_rows, key,
     """Discounted mean payoff per packed-parameter row — the rate
     grid of draws (threefry pairs per (path, step)) is shared by every
     row, so scenario P&L differences are pathwise-smooth."""
-    from mc_tpu.models.heston import _heston_partials_xla
+    from mc_tpu.models.heston import _heston_partials
     from mc_tpu.ops import path_kernels as pk
     from mc_tpu.ops.reduce import finish_sum
     cfg = pk.KernelConfig(n_paths=n_paths, n_steps=n_steps,
@@ -322,7 +322,7 @@ def _heston_ladder_impl(payoff, n_paths, n_steps, tile_rows, key,
     inv_n = jnp.float32(1.0) / jnp.float32(n_paths)
 
     def one(params, d):
-        s, _ = _heston_partials_xla(payoff, cfg, key, params, 0, None)
+        s, _ = _heston_partials(payoff, cfg, key, params, 0, None)
         return finish_sum(s) * inv_n * d
 
     return jax.vmap(one)(params_mat, disc)
@@ -825,11 +825,9 @@ def _model_ladder_impl(model, payoff, n_paths, n_steps, tile_rows, key,
                           tile_rows=tile_rows)
     base_opt = jax.tree.map(lambda x: x[0], opt_rows)
     base_dyn = jax.tree.map(lambda x: x[0], dyn_rows)
-    _, partials = mdef.build(payoff, cfg, base_opt, base_dyn, n_steps,
-                             "xla", False, kmax)
+    _, partials = mdef.build(payoff, cfg, base_opt, base_dyn, n_steps, kmax)
     params_mat = jax.vmap(
-        lambda o, d: mdef.build(payoff, cfg, o, d, n_steps, "xla",
-                                False, kmax)[0])(opt_rows, dyn_rows)
+        lambda o, d: mdef.build(payoff, cfg, o, d, n_steps, kmax)[0])(opt_rows, dyn_rows)
     inv_n = jnp.float32(1.0) / jnp.float32(n_paths)
     bound = jnp.uint32(n_paths)
 

@@ -1,6 +1,6 @@
 """Counter-based RNG: threefry2x32 keyed per (path, draw).
 
-TPU-native replacement for the reference's RNG subsystem (SURVEY.md C3):
+JAX replacement for the reference's RNG subsystem (SURVEY.md C3):
 
 * reference: a ``curandState`` array in global memory, one mutable state per
   CUDA thread, seeded ``curand_init(seed, tid, 0, ...)`` (``inc/tool.cuh:192-195``)
@@ -11,21 +11,19 @@ TPU-native replacement for the reference's RNG subsystem (SURVEY.md C3):
 * here: a pure counter-based generator.  The normal draw for (path ``i``,
   draw ``j``) is a deterministic function ``N(key, i, j)`` — no state arrays,
   no memory cap, bit-identical regardless of tiling, sharding, or backend
-  (verified: compiled TPU Mosaic == CPU interpret == pure-jnp host, see
-  tests/test_rng.py).  This is what makes checkpoint/resume and multi-chip
-  sharding trivially reproducible.
+  (verified: interpreted Triton kernel == XLA engine == pure-numpy host,
+  see tests/test_rng.py and tests/test_triton_parity.py).  This is what
+  makes checkpoint/resume and multi-chip sharding trivially reproducible.
 
-The same functions run inside Pallas kernels (pass ``bitcast=pltpu.bitcast``)
-and in plain jitted XLA code (default ``jax.lax.bitcast_convert_type``), so
-the XLA reference engines and the Pallas production kernels consume an
-identical stream — the framework's version of the reference's
+The same functions run inside the Triton-route Pallas kernels and in plain
+jitted XLA code (every operation here lowers on both routes), so the XLA
+engines and the Pallas kernels consume an identical stream — the
+framework's version of the reference's
 "same random array through CPU and GPU pricers" fixture
 (``inc/testing.cuh:17-42``, SURVEY.md section 4).
 """
 
 from __future__ import annotations
-
-from typing import Callable
 
 import jax
 import jax.numpy as jnp
@@ -66,8 +64,8 @@ def _rotl(x, d: int):
 def threefry2x32(k0, k1, x0, x1, rounds: int = 20):
     """Threefry-2x32. All args uint32 arrays of one shape.
 
-    Pure adds/xors/rotates — lowers on the TPU VPU, in Pallas interpret mode,
-    and on CPU identically.  Returns two uint32 arrays (64 random bits per
+    Pure adds/xors/rotates — lowers in a Triton kernel, in Pallas interpret
+    mode, and in XLA identically.  Returns two uint32 arrays (64 random bits per
     counter).
 
     ``rounds``: 20 is the Random123 default (large safety margin); 13 is
@@ -100,7 +98,7 @@ def derive_key(seed: int, *tags: int) -> tuple[np.uint32, np.uint32]:
     """Derive a (k0, k1) stream key from an integer seed + stream tags.
 
     Host-side, returns concrete numpy uint32 scalars (safe to close over in
-    jitted code or feed to SMEM).  Replaces the reference's hard-coded seed
+    jitted code or pack into a kernel parameter vector).  Replaces the reference's hard-coded seed
     constants 1234/1235 (``inc/wrappers.cuh:41,151``) with a proper key
     hierarchy: ``derive_key(seed)`` is the root, ``derive_key(seed, tag)``
     an independent stream (outer vs inner NMC paths, antithetic pairs, ...).
@@ -148,18 +146,19 @@ def _threefry_scalar_np(k0, k1, x0, x1):
     return x0, x1
 
 
-def bits_to_unit(bits, bitcast: Callable = jax.lax.bitcast_convert_type):
+def bits_to_unit(bits):
     """uint32 random bits -> float32 uniform in [0, 1).
 
     Sets the exponent to 0 (value in [1, 2)) and subtracts 1 — exact, branch
     free, and identical across backends (no rounding ambiguity).
     """
     mant = jax.lax.shift_right_logical(bits, jnp.uint32(9))
-    as_float = bitcast(jax.lax.bitwise_or(mant, jnp.uint32(0x3F800000)), jnp.float32)
+    as_float = jax.lax.bitcast_convert_type(
+        jax.lax.bitwise_or(mant, jnp.uint32(0x3F800000)), jnp.float32)
     return as_float - jnp.float32(1.0)
 
 
-def normal_pair(k0, k1, c0, c1, bitcast: Callable = jax.lax.bitcast_convert_type,
+def normal_pair(k0, k1, c0, c1,
                 rounds: int = DEFAULT_ROUNDS):
     """Two independent N(0,1) arrays from counter arrays (c0, c1).
 
@@ -168,16 +167,15 @@ def normal_pair(k0, k1, c0, c1, bitcast: Callable = jax.lax.bitcast_convert_type
     normal per curand call; curand internally does the same pairing).
     """
     b0, b1 = threefry2x32(k0, k1, c0, c1, rounds=rounds)
-    u1 = bits_to_unit(b0, bitcast)
-    u2 = bits_to_unit(b1, bitcast)
+    u1 = bits_to_unit(b0)
+    u2 = bits_to_unit(b1)
     # 1 - u1 in (0, 1]: log is finite; r = 0 when u1 == 0.
     rad = jnp.sqrt(jnp.float32(-2.0) * jnp.log1p(-u1))
     theta = jnp.float32(TWO_PI) * u2
     return rad * jnp.cos(theta), rad * jnp.sin(theta)
 
 
-def normals(key: tuple, ids, n_draws: int, draw_offset: int = 0,
-            bitcast: Callable = jax.lax.bitcast_convert_type):
+def normals(key: tuple, ids, n_draws: int, draw_offset: int = 0):
     """Stack of `n_draws` N(0,1) arrays for element-id array `ids`.
 
     Returns shape ``(n_draws,) + ids.shape``.  Draw ``j`` for element ``i``
@@ -192,7 +190,7 @@ def normals(key: tuple, ids, n_draws: int, draw_offset: int = 0,
     outs = []
     for m in range(n_pairs):
         c1 = jnp.full(ids.shape, draw_offset // 2 + m, jnp.uint32)
-        z0, z1 = normal_pair(k0, k1, ids, c1, bitcast)
+        z0, z1 = normal_pair(k0, k1, ids, c1)
         outs.append(z0)
         outs.append(z1)
     return jnp.stack(outs[:n_draws], axis=0)
@@ -263,7 +261,7 @@ def inv_normal_cdf(u):
     # the body (|x| < 3, where Phi is computable to ~1e-7 absolute); the
     # tails keep the raw rational value (phi there is too small for a
     # stable residual correction).  erf via the A&S 7.1.26 polynomial
-    # (|err| <= 1.5e-7) — Mosaic has no erf primitive.
+    # (|err| <= 1.5e-7), so kernels need no erf primitive.
     sqrt2 = jnp.float32(1.4142135623730951)
     inv_sqrt2pi = jnp.float32(0.3989422804014327)
     cdf = 0.5 * (1.0 + _erf_as(x / sqrt2))

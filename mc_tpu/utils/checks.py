@@ -1,8 +1,8 @@
 """Runtime validation: the sanitizer tier (SURVEY.md section 5).
 
 The reference relies on `testCUDA` exit-on-error and unchecked atomics
-(``tool.cuh:92-100``); TPU/XLA removes the race classes by construction
-(sequential grid, no shared-memory atomics), so what remains worth
+(``tool.cuh:92-100``); here the race classes are gone by construction
+(per-tile partials summed in tile order, no atomics), so what remains worth
 checking is *numerical* health: NaN/Inf payoffs, negative variances,
 impossible prices.  `validate_result` is a cheap post-hoc gate; `checked`
 wraps a jitted pricer with `jax.experimental.checkify` for hard in-graph

@@ -55,8 +55,7 @@ def test_down_out_limits():
 def test_up_out_bb_unbiased_at_coarse_steps():
     opt = OptionParams(barrier=120.0)
     ref = bs_up_out_call(S0, K, T, R, SIG, b=120.0)
-    res = price(opt, SIM, payoff="up_out_call_bb", method="euler",
-                engine="xla", tile_rows=64)
+    res = price(opt, SIM, payoff="up_out_call_bb", method="euler", tile_rows=64)
     assert abs(float(res.price) - ref) <= 3.5 * float(res.stderr), (
         float(res.price), ref, float(res.stderr))
 
@@ -64,8 +63,7 @@ def test_up_out_bb_unbiased_at_coarse_steps():
 def test_down_out_bb_unbiased_at_coarse_steps():
     opt = OptionParams(barrier=90.0)
     ref = bs_down_out_call(S0, K, T, R, SIG, b=90.0)
-    res = price(opt, SIM, payoff="down_out_call_bb", method="euler",
-                engine="xla", tile_rows=64)
+    res = price(opt, SIM, payoff="down_out_call_bb", method="euler", tile_rows=64)
     assert abs(float(res.price) - ref) <= 3.5 * float(res.stderr), (
         float(res.price), ref, float(res.stderr))
 
@@ -75,10 +73,8 @@ def test_discrete_monitoring_bias_is_real_and_removed():
     continuous price by many stderr; the BB weight removes it."""
     opt = OptionParams(barrier=120.0)
     ref = bs_up_out_call(S0, K, T, R, SIG, b=120.0)
-    disc = price(opt, SIM, payoff="up_out_call", method="euler",
-                 engine="xla", tile_rows=64)
-    bb = price(opt, SIM, payoff="up_out_call_bb", method="euler",
-               engine="xla", tile_rows=64)
+    disc = price(opt, SIM, payoff="up_out_call", method="euler", tile_rows=64)
+    bb = price(opt, SIM, payoff="up_out_call_bb", method="euler", tile_rows=64)
     assert float(disc.price) - ref > 10.0 * float(disc.stderr)
     assert abs(float(bb.price) - ref) <= 3.5 * float(bb.stderr)
     assert float(bb.price) < float(disc.price)
@@ -89,9 +85,8 @@ def test_bb_pallas_xla_bitwise():
     sim = SimParams(n_paths=16_384, n_steps=10)
     for payoff in ("up_out_call_bb", "down_out_call_bb"):
         a = price(opt, sim, payoff=payoff, method="euler",
-                  engine="pallas", tile_rows=8)
-        b = price(opt, sim, payoff=payoff, method="euler",
-                  engine="xla", tile_rows=8)
+                  engine="pallas", interpret=True, tile_rows=8)
+        b = price(opt, sim, payoff=payoff, method="euler", tile_rows=8)
         assert float(a.price) == float(b.price), payoff
         assert float(a.stderr) == float(b.stderr), payoff
 
@@ -100,7 +95,7 @@ def test_in_out_parity_discrete():
     """down_in + down_out = vanilla, path by path under CRN."""
     opt = OptionParams(barrier=90.0)
     sim = SimParams(n_paths=50_000, n_steps=20)
-    kw = dict(method="euler", engine="xla", tile_rows=64)
+    kw = dict(method="euler", tile_rows=64)
     din = price(opt, sim, payoff="down_in_call", **kw)
     dout = price(opt, sim, payoff="down_out_call", **kw)
     van = price(opt, sim, payoff="vanilla_call", **kw)
@@ -111,8 +106,7 @@ def test_in_out_parity_discrete():
 def test_bb_antithetic_unbiased():
     opt = OptionParams(barrier=120.0)
     ref = bs_up_out_call(S0, K, T, R, SIG, b=120.0)
-    res = price(opt, SIM, payoff="up_out_call_bb", method="euler",
-                engine="xla", antithetic=True, tile_rows=64)
+    res = price(opt, SIM, payoff="up_out_call_bb", method="euler", antithetic=True, tile_rows=64)
     assert abs(float(res.price) - ref) <= 3.5 * float(res.stderr)
 
 

@@ -25,7 +25,7 @@ def perfectly_correlated(d=3, sigma=0.2):
 
 
 def test_single_asset_reduces_to_bs():
-    res = price_basket(OptionParams(), single_asset(), SIM, engine="xla",
+    res = price_basket(OptionParams(), single_asset(), SIM,
                        antithetic=True, tile_rows=8)
     bs = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert abs(float(res.price) - bs) <= 4.0 * float(res.stderr)
@@ -33,8 +33,7 @@ def test_single_asset_reduces_to_bs():
 
 def test_perfect_correlation_equals_single_asset():
     """rho=1, equal vols/spots: the basket IS one asset in distribution."""
-    res = price_basket(OptionParams(), perfectly_correlated(), SIM,
-                       engine="xla", antithetic=True, tile_rows=8)
+    res = price_basket(OptionParams(), perfectly_correlated(), SIM, antithetic=True, tile_rows=8)
     bs = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert abs(float(res.price) - bs) <= 4.0 * float(res.stderr)
 
@@ -46,31 +45,20 @@ def test_diversification_lowers_price():
                            sigmas=np.full(d, 0.2, np.float32),
                            weights=np.full(d, 0.25, np.float32),
                            corr=np.eye(d, dtype=np.float32))
-    res_i = price_basket(OptionParams(), indep, SIM, engine="xla",
+    res_i = price_basket(OptionParams(), indep, SIM,
                          antithetic=True, tile_rows=8)
-    res_c = price_basket(OptionParams(), perfectly_correlated(4), SIM,
-                         engine="xla", antithetic=True, tile_rows=8)
+    res_c = price_basket(OptionParams(), perfectly_correlated(4), SIM, antithetic=True, tile_rows=8)
     assert float(res_i.price) < float(res_c.price) - 2.0
-
-
-def test_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=10)
-    a = price_basket(OptionParams(), DEMO_BASKET, sim, engine="pallas",
-                     tile_rows=8)
-    b = price_basket(OptionParams(), DEMO_BASKET, sim, engine="xla",
-                     tile_rows=8)
-    assert float(a.price) == float(b.price)
-    assert float(a.stderr) == float(b.stderr)
 
 
 def test_path_dependent_on_basket():
     sim = SimParams(n_paths=50_000, n_steps=20)
-    vanilla = price_basket(OptionParams(), DEMO_BASKET, sim, engine="xla",
+    vanilla = price_basket(OptionParams(), DEMO_BASKET, sim,
                            tile_rows=8)
     asian = price_basket(OptionParams(), DEMO_BASKET, sim,
-                         payoff="asian_call", engine="xla", tile_rows=8)
+                         payoff="asian_call", tile_rows=8)
     up_out = price_basket(OptionParams(), DEMO_BASKET, sim,
-                          payoff="up_out_call", engine="xla", tile_rows=8)
+                          payoff="up_out_call", tile_rows=8)
     assert 0.0 < float(asian.price) < float(vanilla.price)
     assert 0.0 < float(up_out.price) < float(vanilla.price)
 
@@ -87,8 +75,7 @@ def test_correlation_is_traced():
                            weights=np.full(d, 1 / 3, np.float32),
                            corr=corr)
         res = price_basket(OptionParams(), b,
-                           SimParams(n_paths=50_000, n_steps=10),
-                           engine="xla", tile_rows=8)
+                           SimParams(n_paths=50_000, n_steps=10), tile_rows=8)
         prices.append(float(res.price))
     # more correlation -> more basket variance -> pricier ATM call
     assert prices == sorted(prices)
@@ -109,5 +96,4 @@ def test_basket_dimension_guard():
                          weights=np.full(d, 1.0 / d, np.float32),
                          corr=corr)
     with pytest.raises(ValueError, match="MAX_BASKET_D"):
-        price_basket(basket=dyn, sim=SimParams(n_paths=1024, n_steps=2),
-                     engine="xla")
+        price_basket(basket=dyn, sim=SimParams(n_paths=1024, n_steps=2))

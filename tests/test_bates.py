@@ -85,7 +85,7 @@ def test_heston_cf_q_regression():
 
 def test_mc_matches_cf_oracle_euler():
     ref = bates_call_cf(100.0, 100.0, 1.0, 0.1, *DEMO_BATES.astuple())
-    res = price_bates(OPT, DEMO_BATES, SIM, engine="xla",
+    res = price_bates(OPT, DEMO_BATES, SIM,
                       antithetic=True, tile_rows=64)
     # full-truncation Euler carries O(dt) bias; allow 4 se + 0.5% abs
     tol = 4.0 * float(res.stderr) + 0.005 * ref
@@ -95,7 +95,7 @@ def test_mc_matches_cf_oracle_euler():
 def test_mc_matches_cf_oracle_qe():
     """QE diffusion + exact jumps: no Euler bias term needed at n=50."""
     ref = bates_call_cf(100.0, 100.0, 1.0, 0.1, *DEMO_BATES.astuple())
-    res = price_bates(OPT, DEMO_BATES, SIM, engine="xla", scheme="qe",
+    res = price_bates(OPT, DEMO_BATES, SIM, scheme="qe",
                       antithetic=True, tile_rows=64)
     assert abs(float(res.price) - ref) <= 4.0 * float(res.stderr)
 
@@ -105,7 +105,7 @@ def test_mc_heston_limit():
     flat = BatesDynamics(lam=0.0)
     ref = heston_call_cf(100.0, 100.0, 1.0, 0.1, 0.04, 2.0, 0.04, 0.3,
                          -0.7)
-    res = price_bates(OPT, flat, SIM, engine="xla", antithetic=True,
+    res = price_bates(OPT, flat, SIM, antithetic=True,
                       tile_rows=64)
     tol = 4.0 * float(res.stderr) + 0.005 * ref
     assert abs(float(res.price) - ref) <= tol
@@ -116,47 +116,33 @@ def test_mc_martingale():
     compensator moved into `growth` keeps the spot a martingale."""
     opt = OptionParams(k=0.0)
     res = price_bates(opt, DEMO_BATES, SimParams(n_paths=200_000,
-                                                 n_steps=20),
-                      engine="xla", scheme="qe", antithetic=True,
+                                                 n_steps=20), scheme="qe", antithetic=True,
                       tile_rows=64)
     want = 100.0  # s0, q = 0
     assert abs(float(res.price) - want) <= 4.0 * float(res.stderr)
 
 
-def test_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=20)
-    for scheme in ("euler", "qe"):
-        a = price_bates(OPT, DEMO_BATES, sim, engine="pallas",
-                        scheme=scheme, tile_rows=8)
-        b = price_bates(OPT, DEMO_BATES, sim, engine="xla",
-                        scheme=scheme, tile_rows=8)
-        assert float(a.price) == float(b.price), scheme
-        assert float(a.stderr) == float(b.stderr), scheme
-
-
 def test_tiling_invariance():
     """Counter-based draws: the price is independent of tile_rows."""
     sim = SimParams(n_paths=20_000, n_steps=10)
-    a = price_bates(OPT, DEMO_BATES, sim, engine="xla", tile_rows=8)
-    b = price_bates(OPT, DEMO_BATES, sim, engine="xla", tile_rows=32)
+    a = price_bates(OPT, DEMO_BATES, sim, tile_rows=8)
+    b = price_bates(OPT, DEMO_BATES, sim, tile_rows=32)
     assert float(a.price) == float(b.price)
 
 
 def test_path_dependent_payoffs_work():
     sim = SimParams(n_paths=50_000, n_steps=20)
-    vanilla = price_bates(OPT, DEMO_BATES, sim, engine="xla", tile_rows=8)
-    asian = price_bates(OPT, DEMO_BATES, sim, payoff="asian_call",
-                        engine="xla", tile_rows=8)
-    up_out = price_bates(OPT, DEMO_BATES, sim, payoff="up_out_call",
-                         engine="xla", tile_rows=8)
+    vanilla = price_bates(OPT, DEMO_BATES, sim, tile_rows=8)
+    asian = price_bates(OPT, DEMO_BATES, sim, payoff="asian_call", tile_rows=8)
+    up_out = price_bates(OPT, DEMO_BATES, sim, payoff="up_out_call", tile_rows=8)
     assert 0.0 < float(asian.price) < float(vanilla.price)
     assert 0.0 < float(up_out.price) < float(vanilla.price)
 
 
 def test_antithetic_reduces_stderr():
     sim = SimParams(n_paths=50_000, n_steps=20)
-    plain = price_bates(OPT, DEMO_BATES, sim, engine="xla", tile_rows=8)
-    anti = price_bates(OPT, DEMO_BATES, sim, engine="xla",
+    plain = price_bates(OPT, DEMO_BATES, sim, tile_rows=8)
+    anti = price_bates(OPT, DEMO_BATES, sim,
                        antithetic=True, tile_rows=8)
     assert float(anti.stderr) < float(plain.stderr)
 
@@ -170,6 +156,6 @@ def test_market_params_traced():
     with jax.log_compiles():
         for mu_j in (-0.15, -0.10, -0.05):
             dyn = BatesDynamics(mu_j=mu_j)
-            prices.append(float(price_bates(OPT, dyn, sim, engine="xla",
+            prices.append(float(price_bates(OPT, dyn, sim,
                                             tile_rows=8).price))
     assert len(set(prices)) == 3  # params actually moved the price

@@ -70,8 +70,7 @@ def test_full_mc_loop_recovers_dynamics():
     ks = np.array([85.0, 95.0, 100.0, 105.0, 115.0], np.float32)
     ivs = []
     for k in ks:
-        res = price_sabr(OptionParams(k=float(k)), DEMO_SABR, sim,
-                         engine="xla", antithetic=True, tile_rows=64)
+        res = price_sabr(OptionParams(k=float(k)), DEMO_SABR, sim, antithetic=True, tile_rows=64)
         ivs.append(float(bs_implied_vol(res.price, 100.0, k, 1.0, 0.1)))
     fit = calibrate_sabr(F, T, ks, np.asarray(ivs, np.float32),
                          init=(0.3, 0.2, 0.0))
@@ -124,12 +123,12 @@ def test_heston_fit_reprices_exotic():
     fit = calibrate_heston(strikes, mats, ivs, s0=s0, r=r)
     sim = SimParams(n_paths=100_000, n_steps=50)
     a = price_heston(OptionParams(), HestonDynamics(**true), sim,
-                     payoff="asian_call", engine="xla")
+                     payoff="asian_call")
     b = price_heston(OptionParams(),
                      HestonDynamics(v0=fit.v0, kappa=fit.kappa,
                                     theta=fit.theta, xi=fit.xi,
                                     rho=fit.rho),
-                     sim, payoff="asian_call", engine="xla")
+                     sim, payoff="asian_call")
     # CRN (same seed/stream): difference is the dynamics mismatch alone
     assert float(a.price) == pytest.approx(float(b.price), rel=0.02)
 
@@ -186,7 +185,7 @@ def test_localvol_round_trip_reprices_smile():
                               n_knots=33)
     sim = SimParams(n_paths=400_000, n_steps=50)
     for k in (80.0, 100.0, 125.0):
-        res = price_localvol(OptionParams(k=k), surf, sim, engine="xla")
+        res = price_localvol(OptionParams(k=k), surf, sim)
         iv = float(bs_implied_vol(float(res.price), s0, k, 1.0, r))
         assert iv == pytest.approx(iv_fn(k), abs=0.006)
 

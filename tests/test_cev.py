@@ -21,7 +21,7 @@ def test_mc_matches_closed_form():
     cev = CEVDynamics.from_atm_vol(0.2, 0.5, 100.0)
     ref = cev_call_closed_form(100.0, 100.0, 1.0, 0.1,
                                float(cev.sigma_lv), 0.5)
-    res = price_cev(OptionParams(), cev, SIM, engine="xla",
+    res = price_cev(OptionParams(), cev, SIM,
                     antithetic=True, tile_rows=64)
     # level-space Euler carries O(dt) bias; 4 se + 0.5%
     tol = 4.0 * float(res.stderr) + 0.005 * ref
@@ -42,20 +42,11 @@ def test_skew_direction():
     assert otm < otm_bs          # high-strike vol below ATM vol
 
 
-def test_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=20)
-    a = price_cev(OptionParams(), DEMO := CEVDynamics(), sim,
-                  engine="pallas", tile_rows=8)
-    b = price_cev(OptionParams(), DEMO, sim, engine="xla", tile_rows=8)
-    assert float(a.price) == float(b.price)
-
-
 def test_path_dependent_payoffs():
     sim = SimParams(n_paths=50_000, n_steps=20)
     cev = CEVDynamics.from_atm_vol(0.2, 0.7, 100.0)
-    vanilla = price_cev(OptionParams(), cev, sim, engine="xla", tile_rows=8)
-    asian = price_cev(OptionParams(), cev, sim, payoff="asian_call",
-                      engine="xla", tile_rows=8)
+    vanilla = price_cev(OptionParams(), cev, sim, tile_rows=8)
+    asian = price_cev(OptionParams(), cev, sim, payoff="asian_call", tile_rows=8)
     assert 0.0 < float(asian.price) < float(vanilla.price)
 
 

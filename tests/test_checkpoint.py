@@ -20,24 +20,23 @@ def test_chunked_matches_plain_price():
     path, a DIFFERENT stream by design; see BASELINE.md's default
     decision).  The pair default is still cross-checked statistically.
     """
-    a = chunked_price(sim=SIM, chunk_paths=CHUNK, engine="xla", tile_rows=8)
-    b = price(sim=SIM, engine="xla", tile_rows=8, method="terminal")
+    a = chunked_price(sim=SIM, chunk_paths=CHUNK, tile_rows=8)
+    b = price(sim=SIM, tile_rows=8, method="terminal")
     assert float(a.price) == pytest.approx(float(b.price), rel=1e-6)
     assert float(a.stderr) == pytest.approx(float(b.stderr), rel=1e-4)
-    c = price(sim=SIM, engine="xla", tile_rows=8)  # terminal_pair default
+    c = price(sim=SIM, tile_rows=8)  # terminal_pair default
     joint = (float(a.stderr) ** 2 + float(c.stderr) ** 2) ** 0.5
     assert abs(float(a.price) - float(c.price)) < 4 * joint
 
 
 def test_resume_bitwise_identical(tmp_path):
     ck = str(tmp_path / "run.npz")
-    full = chunked_price(sim=SIM, chunk_paths=CHUNK, engine="xla",
+    full = chunked_price(sim=SIM, chunk_paths=CHUNK,
                          tile_rows=8)
 
     # Interrupted run: price only the first 2 chunks by lying about n_paths
     # progress — simulate by running with checkpointing, then truncating.
-    chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck,
-                  engine="xla", tile_rows=8)
+    chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck, tile_rows=8)
     state = load_checkpoint(ck)
     assert state.paths_done >= SIM.n_paths
 
@@ -48,7 +47,7 @@ def test_resume_bitwise_identical(tmp_path):
     # Recompute the first two chunks to get their true accumulator state:
     ck2 = str(tmp_path / "run2.npz")
     chunked_price(sim=SimParams(n_paths=2 * CHUNK, n_steps=SIM.n_steps),
-                  chunk_paths=CHUNK, checkpoint_path=ck2, engine="xla",
+                  chunk_paths=CHUNK, checkpoint_path=ck2,
                   tile_rows=8)
     s2 = load_checkpoint(ck2)
     partial.acc, partial.comp = s2.acc, s2.comp
@@ -56,7 +55,7 @@ def test_resume_bitwise_identical(tmp_path):
     partial.save(ck)
 
     resumed = chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck,
-                            resume=True, engine="xla", tile_rows=8)
+                            resume=True, tile_rows=8)
     assert float(resumed.price) == float(full.price)  # bitwise
     assert float(resumed.stderr) == float(full.stderr)
 
@@ -64,13 +63,11 @@ def test_resume_bitwise_identical(tmp_path):
 def test_resume_guards(tmp_path):
     ck = str(tmp_path / "run.npz")
     with pytest.raises(FileNotFoundError):
-        chunked_price(sim=SIM, checkpoint_path=ck, resume=True,
-                      engine="xla", tile_rows=8)
-    chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck,
-                  engine="xla", tile_rows=8)
+        chunked_price(sim=SIM, checkpoint_path=ck, resume=True, tile_rows=8)
+    chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck, tile_rows=8)
     with pytest.raises(ValueError):
         chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck,
-                      resume=True, payoff="bullet_call", engine="xla",
+                      resume=True, payoff="bullet_call",
                       tile_rows=8)
 
 
@@ -80,7 +77,7 @@ def test_checkpoint_roundtrip(tmp_path):
                     acc=np.ones((2, 8, 128), np.float32),
                     comp=np.zeros((2, 8, 128), np.float32),
                     meta=dict(seed=1, payoff="vanilla_call", method="euler",
-                              chunk_paths=100, engine="xla"))
+                              chunk_paths=100))
     ck.save(p)
     back = load_checkpoint(p)
     assert back.paths_done == 100
@@ -92,16 +89,13 @@ def test_resume_rejects_changed_market_data(tmp_path):
     """Regression (review finding): resuming under different dynamics or
     step counts must fail loudly, not merge distributions."""
     ck = str(tmp_path / "run.npz")
-    chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck,
-                  engine="xla", tile_rows=8)
+    chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck, tile_rows=8)
     with pytest.raises(ValueError, match="option"):
         chunked_price(option=OptionParams(sigma=0.3), sim=SIM,
-                      chunk_paths=CHUNK, checkpoint_path=ck, resume=True,
-                      engine="xla", tile_rows=8)
+                      chunk_paths=CHUNK, checkpoint_path=ck, resume=True, tile_rows=8)
     with pytest.raises(ValueError, match="n_steps"):
         chunked_price(sim=SimParams(n_paths=SIM.n_paths, n_steps=20),
-                      chunk_paths=CHUNK, checkpoint_path=ck, resume=True,
-                      engine="xla", tile_rows=8)
+                      chunk_paths=CHUNK, checkpoint_path=ck, resume=True, tile_rows=8)
 
 
 def test_engine_typo_rejected(tmp_path):
@@ -116,22 +110,21 @@ def test_resume_rejects_changed_rng_source(tmp_path):
     """Regression (review): the stream (round count) is part of the
     resume contract — merging 13- and 20-round chunks must fail loudly."""
     ck = str(tmp_path / "run.npz")
-    chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck,
-                  engine="xla", tile_rows=8)
+    chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck, tile_rows=8)
     with pytest.raises(ValueError, match="rng_source"):
         chunked_price(sim=SIM, chunk_paths=CHUNK, checkpoint_path=ck,
-                      resume=True, engine="xla", tile_rows=8,
+                      resume=True, tile_rows=8,
                       rng_source="threefry")
 
 
 def test_hw_rng_source_rejected():
-    """Regression (review): the stateful hardware PRNG cannot honor the
-    bit-identical-resume contract and unknown strings must not silently
-    map to 20-round threefry."""
-    with pytest.raises(ValueError, match="resumable"):
+    """Unknown stream names must not silently map to 20-round threefry:
+    only the counter-based streams can honor the bit-identical-resume
+    contract."""
+    with pytest.raises(ValueError, match="rng_source"):
         chunked_price(sim=SIM, chunk_paths=CHUNK, rng_source="hw",
                       tile_rows=8)
-    with pytest.raises(ValueError, match="resumable"):
+    with pytest.raises(ValueError, match="rng_source"):
         chunked_price(sim=SIM, chunk_paths=CHUNK, rng_source="threefry31",
                       tile_rows=8)
 
@@ -147,10 +140,10 @@ def test_elastic_mesh_bitwise_invariance(tmp_path):
     from mc_tpu.parallel import make_mesh
     sim = SimParams(n_paths=40_000, n_steps=10)
     ch = 8192
-    seq = chunked_price(sim=sim, chunk_paths=ch, engine="xla", tile_rows=8)
-    m8 = chunked_price(sim=sim, chunk_paths=ch, engine="xla", tile_rows=8,
+    seq = chunked_price(sim=sim, chunk_paths=ch, tile_rows=8)
+    m8 = chunked_price(sim=sim, chunk_paths=ch, tile_rows=8,
                        mesh=make_mesh(jax.devices()[:8]))
-    m3 = chunked_price(sim=sim, chunk_paths=ch, engine="xla", tile_rows=8,
+    m3 = chunked_price(sim=sim, chunk_paths=ch, tile_rows=8,
                        mesh=make_mesh(jax.devices()[:3]))
     assert float(seq.price) == float(m8.price) == float(m3.price)
 
@@ -159,12 +152,12 @@ def test_elastic_mesh_bitwise_invariance(tmp_path):
     # target, then resume the remaining chunks on a 3-chip mesh
     ck = str(tmp_path / "elastic.npz")
     chunked_price(sim=SimParams(n_paths=2 * ch, n_steps=10),
-                  chunk_paths=ch, engine="xla", tile_rows=8,
+                  chunk_paths=ch, tile_rows=8,
                   mesh=make_mesh(jax.devices()[:8]), checkpoint_path=ck)
     mid = load_checkpoint(ck)
     mid.n_paths = sim.n_paths
     mid.save(ck)
-    resumed = chunked_price(sim=sim, chunk_paths=ch, engine="xla",
+    resumed = chunked_price(sim=sim, chunk_paths=ch,
                             tile_rows=8, mesh=make_mesh(jax.devices()[:3]),
                             checkpoint_path=ck, resume=True)
     assert float(resumed.price) == float(seq.price)
@@ -177,13 +170,13 @@ def test_elastic_resume_rejects_off_boundary(tmp_path):
     from mc_tpu.parallel import make_mesh
     sim = SimParams(n_paths=40_000, n_steps=10)
     ck = str(tmp_path / "off.npz")
-    chunked_price(sim=sim, chunk_paths=8192, engine="xla", tile_rows=8,
+    chunked_price(sim=sim, chunk_paths=8192, tile_rows=8,
                   checkpoint_path=ck)
     bad = load_checkpoint(ck)
     bad.paths_done = 5000  # not a chunk boundary
     bad.save(ck)
     with pytest.raises(ValueError, match="chunk boundary"):
-        chunked_price(sim=sim, chunk_paths=8192, engine="xla", tile_rows=8,
+        chunked_price(sim=sim, chunk_paths=8192, tile_rows=8,
                       mesh=make_mesh(jax.devices()[:4]),
                       checkpoint_path=ck, resume=True)
 
@@ -196,13 +189,11 @@ def test_chunked_model_matches_plain():
     from mc_tpu.models.heston import price_heston
     from mc_tpu.models.vasicek import price_vasicek
     sim = SimParams(n_paths=40_000, n_steps=10)
-    a = chunked_price(sim=sim, chunk_paths=CHUNK, model="heston",
-                      engine="xla", tile_rows=8)
-    b = price_heston(sim=sim, engine="xla", tile_rows=8)
+    a = chunked_price(sim=sim, chunk_paths=CHUNK, model="heston", tile_rows=8)
+    b = price_heston(sim=sim, tile_rows=8)
     assert float(a.price) == pytest.approx(float(b.price), rel=1e-6)
-    av = chunked_price(sim=sim, chunk_paths=CHUNK, model="vasicek",
-                       engine="xla", tile_rows=8)
-    bv = price_vasicek(sim=sim, engine="xla", tile_rows=8)
+    av = chunked_price(sim=sim, chunk_paths=CHUNK, model="vasicek", tile_rows=8)
+    bv = price_vasicek(sim=sim, tile_rows=8)
     assert float(av.price) == pytest.approx(float(bv.price), rel=1e-6)
 
 
@@ -215,22 +206,19 @@ def test_chunked_model_elastic_bitwise(tmp_path):
     from mc_tpu.parallel import make_mesh
     sim = SimParams(n_paths=40_000, n_steps=10)
     ch = 8192
-    seq = chunked_price(sim=sim, chunk_paths=ch, model="heston",
-                        engine="xla", tile_rows=8)
-    m8 = chunked_price(sim=sim, chunk_paths=ch, model="heston",
-                       engine="xla", tile_rows=8,
+    seq = chunked_price(sim=sim, chunk_paths=ch, model="heston", tile_rows=8)
+    m8 = chunked_price(sim=sim, chunk_paths=ch, model="heston", tile_rows=8,
                        mesh=make_mesh(jax.devices()[:8]))
     assert float(seq.price) == float(m8.price)
     ck = str(tmp_path / "model.npz")
     chunked_price(sim=SimParams(n_paths=2 * ch, n_steps=10),
-                  chunk_paths=ch, model="heston", engine="xla",
+                  chunk_paths=ch, model="heston",
                   tile_rows=8, mesh=make_mesh(jax.devices()[:8]),
                   checkpoint_path=ck)
     mid = load_checkpoint(ck)
     mid.n_paths = sim.n_paths
     mid.save(ck)
-    resumed = chunked_price(sim=sim, chunk_paths=ch, model="heston",
-                            engine="xla", tile_rows=8,
+    resumed = chunked_price(sim=sim, chunk_paths=ch, model="heston", tile_rows=8,
                             mesh=make_mesh(jax.devices()[:3]),
                             checkpoint_path=ck, resume=True)
     assert float(resumed.price) == float(seq.price)
@@ -242,11 +230,10 @@ def test_chunked_model_rejects_changed_dynamics(tmp_path):
     from mc_tpu.models.heston import HestonDynamics
     sim = SimParams(n_paths=2 * CHUNK, n_steps=10)
     ck = str(tmp_path / "dyn.npz")
-    chunked_price(sim=sim, chunk_paths=CHUNK, model="heston",
-                  engine="xla", tile_rows=8, checkpoint_path=ck)
+    chunked_price(sim=sim, chunk_paths=CHUNK, model="heston", tile_rows=8, checkpoint_path=ck)
     with pytest.raises(ValueError, match="mismatch for 'dyn'"):
         chunked_price(sim=sim, chunk_paths=CHUNK, model="heston",
-                      dyn=HestonDynamics(v0=0.09), engine="xla",
+                      dyn=HestonDynamics(v0=0.09),
                       tile_rows=8, checkpoint_path=ck, resume=True)
 
 
@@ -257,4 +244,4 @@ def test_chunked_model_validation():
         chunked_price(model="rainbow")
     with pytest.raises(ValueError, match="even n_steps"):
         chunked_price(sim=SimParams(n_paths=2048, n_steps=9),
-                      model="merton", engine="xla", tile_rows=8)
+                      model="merton", tile_rows=8)

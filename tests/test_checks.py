@@ -9,7 +9,7 @@ from mc_tpu.utils.checks import CheckError, checked, validate_result
 
 
 def test_validate_healthy():
-    res = price(sim=SimParams(n_paths=10_000, n_steps=10), engine="xla",
+    res = price(sim=SimParams(n_paths=10_000, n_steps=10),
                 tile_rows=8)
     validate_result(res)  # no raise
 

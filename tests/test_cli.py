@@ -7,8 +7,7 @@ import pytest
 
 from mc_tpu.cli import main
 
-SMALL = ["-N", "20000", "--n-steps", "10", "--tile-rows", "8",
-         "--engine", "xla"]
+SMALL = ["-N", "20000", "--n-steps", "10", "--tile-rows", "8"]
 
 
 def run(capsys, argv):
@@ -35,7 +34,7 @@ def test_price_custom_market(capsys):
 def test_nmc_json(capsys):
     rc, out = run(capsys, ["nmc", "-N", "1024", "--n-steps", "6",
                            "--n-inner", "8", "--p1", "1", "--p2", "4",
-                           "--tile-rows", "8", "--engine", "xla"])
+                           "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0
     assert doc["n_points"] == 1024 * 6
@@ -68,7 +67,7 @@ def test_greeks_json(capsys):
 
 def test_qmc_json(capsys):
     rc, out = run(capsys, ["qmc", "-N", "2053", "--n-shifts", "4",
-                           "--tile-rows", "8", "--engine", "xla"])
+                           "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0
     assert abs(doc["price"] - doc["black_scholes"]) < 0.2
@@ -81,8 +80,7 @@ def test_info(capsys):
 
 def test_demo_table(capsys):
     rc, out = run(capsys, ["demo", "--skip-nmc", "-N", "20000",
-                           "--n-steps", "10", "--tile-rows", "8",
-                           "--engine", "xla"])
+                           "--n-steps", "10", "--tile-rows", "8"])
     assert rc == 0
     assert "Black-Scholes closed form" in out
     assert "bullet" in out

@@ -6,8 +6,7 @@ import json
 
 from mc_tpu.cli import main
 
-SMALL = ["-N", "2048", "--n-steps", "8", "--tile-rows", "8",
-         "--engine", "xla"]
+SMALL = ["-N", "2048", "--n-steps", "8", "--tile-rows", "8"]
 
 
 def run(capsys, argv):
@@ -39,8 +38,7 @@ def test_nmc_new_models(capsys):
 def test_divs_oracle_zscore(capsys):
     rc, out = run(capsys, ["divs", "--div-steps", "4",
                            "--div-amounts", "5", "-N", "100000",
-                           "--n-steps", "10", "--tile-rows", "8",
-                           "--engine", "xla"])
+                           "--n-steps", "10", "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0
     assert abs(doc["z_score"]) < 4.0
@@ -55,7 +53,7 @@ def test_calibrate_heston_cli(capsys):
 def test_qmc_model_cli(capsys):
     rc, out = run(capsys, ["qmc", "--model", "heston", "-N", "4096",
                            "--n-steps", "8", "--n-shifts", "4",
-                           "--tile-rows", "8", "--engine", "xla"])
+                           "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0 and doc["stderr"] > 0
     assert abs(doc["price"] - doc["cf_oracle"]) < 1.0
@@ -63,8 +61,7 @@ def test_qmc_model_cli(capsys):
 
 def test_american_greeks_cli(capsys):
     rc, out = run(capsys, ["american", "--greeks", "-N", "20000",
-                           "--n-steps", "10", "--tile-rows", "8",
-                           "--engine", "xla"])
+                           "--n-steps", "10", "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0
     assert abs(doc["delta"] - doc["crr_delta"]) < 0.08
@@ -73,8 +70,7 @@ def test_american_greeks_cli(capsys):
 def test_american_localvol_bounds_cli(capsys):
     rc, out = run(capsys, ["american", "--model", "localvol", "--bounds",
                            "--bounds-inner", "32", "-N", "8000",
-                           "--n-steps", "8", "--tile-rows", "8",
-                           "--engine", "xla"])
+                           "--n-steps", "8", "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0
     assert doc["upper"] + 0.3 >= doc["lower"]
@@ -94,7 +90,7 @@ def test_american_rainbow_cli(capsys):
     rc, out = run(capsys, ["american", "--model", "rainbow",
                            "--n-assets", "2", "--payoff", "put_on_min",
                            "-N", "4096", "--n-steps", "8",
-                           "--tile-rows", "8", "--engine", "xla"])
+                           "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0 and doc["price"] > 0 and doc["model"] == "rainbow"
 
@@ -103,23 +99,9 @@ def test_american_rainbow_bounds_cli(capsys):
     rc, out = run(capsys, ["american", "--model", "rainbow", "--bounds",
                            "--n-assets", "2", "--payoff", "put_on_min",
                            "--bounds-inner", "16", "-N", "4096",
-                           "--n-steps", "8", "--tile-rows", "8",
-                           "--engine", "xla"])
+                           "--n-steps", "8", "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0
     assert doc["upper"] + 0.3 >= doc["lower"]
 
 
-def test_nmc_strategy_fused_cli(capsys):
-    rc_g, out_g = run(capsys, ["nmc", "--model", "heston", "--payoff",
-                               "vanilla_call", "--n-inner", "8",
-                               "--strategy", "grid", "-N", "2048",
-                               "--n-steps", "8", "--tile-rows", "8"])
-    rc_f, out_f = run(capsys, ["nmc", "--model", "heston", "--payoff",
-                               "vanilla_call", "--n-inner", "8",
-                               "--strategy", "fused", "-N", "2048",
-                               "--n-steps", "8", "--tile-rows", "8"])
-    g, f = json.loads(out_g), json.loads(out_f)
-    assert rc_g == rc_f == 0
-    assert g["outer_price"] == f["outer_price"]
-    assert g["surface_mean"] == f["surface_mean"]

@@ -7,8 +7,7 @@ import pytest
 
 from mc_tpu.cli import main
 
-SMALL = ["-N", "2048", "--n-steps", "8", "--tile-rows", "8",
-         "--engine", "xla"]
+SMALL = ["-N", "2048", "--n-steps", "8", "--tile-rows", "8"]
 
 
 def run(capsys, argv):
@@ -74,7 +73,7 @@ def test_nmc_wwr_spot_cli(capsys):
                            "--n-inner", "8", "--exposure",
                            "--cva-hazard", "0.02", "--wwr-beta", "2.0",
                            "--wwr-spot-beta", "2.0",
-                           "--strategy", "grid", "-N", "2048",
+                           "-N", "2048",
                            "--n-steps", "8", "--tile-rows", "8"])
     doc = json.loads(out)
     assert rc == 0
@@ -118,12 +117,6 @@ def test_nmc_xva_flags(capsys):
     # first two dates are uncollateralized under the 2-step MPoR
     assert (doc["collateralized_ee"][0]
             == doc["expected_exposure"][0])
-
-
-def test_nmc_hw_guard(capsys):
-    import pytest
-    with pytest.raises(SystemExit, match="hw"):
-        main(["nmc", "--model", "heston", "--rng-source", "hw"] + SMALL)
 
 
 def test_hullwhite_book_and_bounds_cli(capsys):
@@ -278,7 +271,7 @@ def test_bates_cli(capsys):
     for scheme in ("euler", "qe"):
         rc, out = run(capsys, ["bates", "--scheme", scheme,
                                "-N", "65536", "--n-steps", "16",
-                               "--tile-rows", "8", "--engine", "xla"])
+                               "--tile-rows", "8"])
         doc = json.loads(out)
         assert rc == 0
         z = (doc["price"] - doc["cf_oracle"]) / doc["stderr"]

@@ -19,7 +19,7 @@ def test_bs_with_dividends():
 
 @pytest.mark.parametrize("method", ["terminal", "euler"])
 def test_mc_matches_bs_with_q(method):
-    res = price(OptionParams(q=Q), SIM, method=method, engine="xla",
+    res = price(OptionParams(q=Q), SIM, method=method,
                 antithetic=True, tile_rows=8)
     bs = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2, Q))
     assert abs(float(res.price) - bs) <= 4.0 * float(res.stderr)
@@ -28,7 +28,7 @@ def test_mc_matches_bs_with_q(method):
 def test_cv_expectation_with_q():
     """Control variate E[S_T] must use the q-adjusted forward."""
     from mc_tpu.oracle import bs_call
-    res = price(OptionParams(q=Q), SIM, method="euler", engine="xla",
+    res = price(OptionParams(q=Q), SIM, method="euler",
                 control_variate=True, antithetic=True, tile_rows=8)
     bs = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2, Q))
     assert abs(float(res.price) - bs) <= 4.0 * float(res.stderr) + 1e-3
@@ -36,9 +36,9 @@ def test_cv_expectation_with_q():
 
 def test_put_call_parity_with_q():
     import math
-    c = price(OptionParams(q=Q), SIM, engine="xla", antithetic=True,
+    c = price(OptionParams(q=Q), SIM, antithetic=True,
               tile_rows=8)
-    p = price(OptionParams(q=Q), SIM, payoff="vanilla_put", engine="xla",
+    p = price(OptionParams(q=Q), SIM, payoff="vanilla_put",
               antithetic=True, tile_rows=8)
     parity = 100.0 * math.exp(-Q) - 100.0 * math.exp(-0.1)
     tol = 4.0 * (float(c.stderr) + float(p.stderr))
@@ -74,13 +74,13 @@ def test_heston_and_basket_with_q():
     from mc_tpu.models.heston import price_heston, DEMO_HESTON
     from mc_tpu.models.basket import price_basket, DEMO_BASKET
     sim = SimParams(n_paths=50_000, n_steps=20)
-    h0 = price_heston(OptionParams(), DEMO_HESTON, sim, engine="xla",
+    h0 = price_heston(OptionParams(), DEMO_HESTON, sim,
                       tile_rows=8)
-    hq = price_heston(OptionParams(q=Q), DEMO_HESTON, sim, engine="xla",
+    hq = price_heston(OptionParams(q=Q), DEMO_HESTON, sim,
                       tile_rows=8)
     assert float(hq.price) < float(h0.price)
-    b0 = price_basket(OptionParams(), DEMO_BASKET, sim, engine="xla",
+    b0 = price_basket(OptionParams(), DEMO_BASKET, sim,
                       tile_rows=8)
-    bq = price_basket(OptionParams(q=Q), DEMO_BASKET, sim, engine="xla",
+    bq = price_basket(OptionParams(q=Q), DEMO_BASKET, sim,
                       tile_rows=8)
     assert float(bq.price) < float(b0.price)

@@ -21,23 +21,20 @@ def _gate(res, want, n_se=3.5):
 def test_forward_start_rubinstein_gate(k_ratio):
     """Strike fixes halfway (step 10 of 20 => t1 = 0.5)."""
     opt = OptionParams(k=k_ratio, p1=10.0)
-    res = price(opt, SIM, payoff="forward_start_call", method="euler",
-                engine="xla", antithetic=True, tile_rows=8)
+    res = price(opt, SIM, payoff="forward_start_call", method="euler", antithetic=True, tile_rows=8)
     _gate(res, bs_forward_start_call(100.0, k_ratio, 0.5, 1.0, 0.1, 0.2))
 
 
 def test_forward_start_t1_zero_is_vanilla():
     """p1=0: the strike fixes at S0 — a vanilla call struck at k*S0."""
     opt = OptionParams(k=1.0, p1=0.0)
-    res = price(opt, SIM, payoff="forward_start_call", method="euler",
-                engine="xla", antithetic=True, tile_rows=8)
+    res = price(opt, SIM, payoff="forward_start_call", method="euler", antithetic=True, tile_rows=8)
     _gate(res, float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2)))
 
 
 def test_forward_start_with_dividend():
     opt = OptionParams(k=1.0, p1=10.0, q=0.03)
-    res = price(opt, SIM, payoff="forward_start_call", method="euler",
-                engine="xla", antithetic=True, tile_rows=8)
+    res = price(opt, SIM, payoff="forward_start_call", method="euler", antithetic=True, tile_rows=8)
     _gate(res, bs_forward_start_call(100.0, 1.0, 0.5, 1.0, 0.1, 0.2,
                                      q=0.03))
 
@@ -45,7 +42,7 @@ def test_forward_start_with_dividend():
 def test_cliquet_closed_form_gate():
     """4 periods of 5 steps, floor -2%, cap +4%."""
     opt = OptionParams(k=5.0, p1=-0.02, p2=0.04)
-    res = price(opt, SIM, payoff="cliquet", method="euler", engine="xla",
+    res = price(opt, SIM, payoff="cliquet", method="euler",
                 antithetic=True, tile_rows=8)
     _gate(res, bs_cliquet(4, 0.25, -0.02, 0.04, 1.0, 0.1, 0.2))
 
@@ -54,7 +51,7 @@ def test_cliquet_uncapped_forward_identity():
     """floor=-inf-ish, cap=+inf-ish: E[clamp] = E[R-1] = e^{(r-q)dt}-1,
     so the value is e^{-rT} n (e^{(r-q)dt}-1) exactly."""
     opt = OptionParams(k=5.0, p1=-100.0, p2=100.0)
-    res = price(opt, SIM, payoff="cliquet", method="euler", engine="xla",
+    res = price(opt, SIM, payoff="cliquet", method="euler",
                 antithetic=True, tile_rows=8)
     want = math.exp(-0.1) * 4 * (math.exp(0.1 * 0.25) - 1.0)
     _gate(res, want)
@@ -66,7 +63,7 @@ def test_cliquet_uncapped_forward_identity():
 def test_cliquet_cap_monotone():
     """A higher cap can only raise the value (pathwise dominance) —
     exact on the same key."""
-    kw = dict(sim=SIM, payoff="cliquet", method="euler", engine="xla",
+    kw = dict(sim=SIM, payoff="cliquet", method="euler",
               tile_rows=8)
     lo = price(OptionParams(k=5.0, p1=-0.02, p2=0.02), **kw)
     hi = price(OptionParams(k=5.0, p1=-0.02, p2=0.08), **kw)
@@ -98,8 +95,8 @@ def test_engines_bitwise():
                         ("cliquet",
                          OptionParams(k=5.0, p1=-0.02, p2=0.04))):
         a = price(opt, sim, payoff=payoff, method="euler",
-                  engine="pallas", tile_rows=8)
-        b = price(opt, sim, payoff=payoff, method="euler", engine="xla",
+                  engine="pallas", interpret=True, tile_rows=8)
+        b = price(opt, sim, payoff=payoff, method="euler",
                   tile_rows=8)
         assert float(a.price) == float(b.price), payoff
         assert float(a.stderr) == float(b.stderr), payoff

@@ -44,22 +44,10 @@ def test_mc_matches_closed_form(contract):
     """Every contract within 3.5 sigma of its exact oracle — jointly these
     pin the quanto drift tilt, the rho mixing, and the measure change."""
     opt = OPT if not contract.startswith("compo") else OptionParams(k=120.0)
-    res = price_fx(opt, FX, SIM, contract, engine="xla")
+    res = price_fx(opt, FX, SIM, contract)
     ref = _oracle(contract, opt)
     z = (float(res.price) - ref) / float(res.stderr)
     assert abs(z) < 3.5, (contract, float(res.price), ref, z)
-
-
-@pytest.mark.parametrize("contract", ["quanto_call", "compo_put",
-                                      "gk_call", "flexo_put"])
-def test_engines_bitwise(contract):
-    """pallas (interpret on CPU) and the XLA dual consume identical
-    streams and fold identically -> bit-equal price AND stderr."""
-    sim = SimParams(n_paths=65_536, n_steps=2, seed=3)
-    a = price_fx(OPT, FX, sim, contract, engine="pallas", tile_rows=8)
-    b = price_fx(OPT, FX, sim, contract, engine="xla", tile_rows=8)
-    assert float(a.price) == float(b.price)
-    assert float(a.stderr) == float(b.stderr)
 
 
 def test_oracle_put_call_parities():
@@ -119,8 +107,7 @@ def test_quanto_adapter_prices_through_gbm_engine():
     composition: engines.price on the adapted params hits the quanto
     oracle within MC noise."""
     opt, xb = quanto_option_params(OPT, FX)
-    res = price(opt, SimParams(n_paths=1 << 20, n_steps=2, seed=5),
-                engine="xla")
+    res = price(opt, SimParams(n_paths=1 << 20, n_steps=2, seed=5))
     ref = _oracle("quanto_call")
     z = (xb * float(res.price) - ref) / (xb * float(res.stderr))
     assert abs(z) < 3.5, (xb * float(res.price), ref, z)
@@ -132,7 +119,7 @@ def test_quanto_asian_through_adapter_brackets():
     forward-start-free lower bound 0."""
     opt, xb = quanto_option_params(OPT, FX)
     asian = price(opt, SimParams(n_paths=1 << 18, n_steps=64, seed=7),
-                  payoff="asian_call", engine="xla")
+                  payoff="asian_call")
     vanilla = _oracle("quanto_call")
     a = xb * float(asian.price)
     assert 0.0 < a < vanilla
@@ -140,8 +127,7 @@ def test_quanto_asian_through_adapter_brackets():
     fx_hi = FXDynamics(x0=1.2, sigma_x=0.15, r_f=0.03, rho=-0.8)
     opt_hi, _ = quanto_option_params(OPT, fx_hi)
     asian_hi = price(opt_hi, SimParams(n_paths=1 << 18, n_steps=64,
-                                       seed=7), payoff="asian_call",
-                     engine="xla")
+                                       seed=7), payoff="asian_call")
     assert float(asian_hi.price) > float(asian.price)
 
 
@@ -152,11 +138,11 @@ def test_correlation_sensitivity_signs():
     lo = FXDynamics(x0=1.2, sigma_x=0.15, r_f=0.03, rho=-0.6)
     hi = FXDynamics(x0=1.2, sigma_x=0.15, r_f=0.03, rho=0.6)
     ko = OptionParams(k=120.0)
-    c_lo = price_fx(ko, lo, sim, "compo_call", engine="xla")
-    c_hi = price_fx(ko, hi, sim, "compo_call", engine="xla")
+    c_lo = price_fx(ko, lo, sim, "compo_call")
+    c_hi = price_fx(ko, hi, sim, "compo_call")
     assert float(c_hi.price) > float(c_lo.price)
-    q_lo = price_fx(OPT, lo, sim, "quanto_call", engine="xla")
-    q_hi = price_fx(OPT, hi, sim, "quanto_call", engine="xla")
+    q_lo = price_fx(OPT, lo, sim, "quanto_call")
+    q_hi = price_fx(OPT, hi, sim, "quanto_call")
     assert float(q_hi.price) < float(q_lo.price)
 
 
@@ -170,8 +156,9 @@ def test_default_strikes_resolve_to_spot():
 def test_unknown_contract_and_engine_raise():
     with pytest.raises(KeyError, match="unknown fx contract"):
         price_fx(OPT, FX, SIM, "straddle")
-    with pytest.raises(ValueError, match="unknown engine"):
-        price_fx(OPT, FX, SIM, "gk_call", engine="mosaic")
+    # one engine only: the option that chose among engines is gone
+    with pytest.raises(TypeError, match="engine"):
+        price_fx(OPT, FX, SIM, "gk_call", engine="xla")
 
 
 def test_stream_independent_of_gbm():
@@ -179,7 +166,6 @@ def test_stream_independent_of_gbm():
     the same seed: prices differ (not bit-coupled), statistics agree."""
     sim = SimParams(n_paths=1 << 16, n_steps=2, seed=11)
     opt, xb = quanto_option_params(OPT, FX)
-    via_engine = xb * float(price(opt, sim, engine="xla").price)
-    direct = float(price_fx(OPT, FX, sim, "quanto_call",
-                            engine="xla").price)
+    via_engine = xb * float(price(opt, sim).price)
+    direct = float(price_fx(OPT, FX, sim, "quanto_call").price)
     assert via_engine != direct  # different streams, same seed

@@ -30,7 +30,7 @@ def test_cf_oracle_known_regime():
 
 def test_mc_matches_cf_oracle():
     ref = heston_call_cf(100.0, 100.0, 1.0, 0.1, *DEMO_HESTON.astuple())
-    res = price_heston(OPT, DEMO_HESTON, SIM, engine="xla",
+    res = price_heston(OPT, DEMO_HESTON, SIM,
                        antithetic=True, tile_rows=64)
     # full-truncation Euler carries O(dt) bias; allow 4 se + 0.5% abs
     tol = 4.0 * float(res.stderr) + 0.005 * ref
@@ -40,35 +40,24 @@ def test_mc_matches_cf_oracle():
 def test_mc_gbm_limit():
     """xi ~ 0: Heston MC must reproduce the BS price."""
     flat = HestonDynamics(v0=0.04, kappa=1.0, theta=0.04, xi=1e-7, rho=0.0)
-    res = price_heston(OPT, flat, SimParams(n_paths=100_000, n_steps=50),
-                       engine="xla", antithetic=True, tile_rows=8)
+    res = price_heston(OPT, flat, SimParams(n_paths=100_000, n_steps=50), antithetic=True, tile_rows=8)
     bs = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert abs(float(res.price) - bs) <= 4.0 * float(res.stderr)
 
 
-def test_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=20)
-    a = price_heston(OPT, DEMO_HESTON, sim, engine="pallas", tile_rows=8)
-    b = price_heston(OPT, DEMO_HESTON, sim, engine="xla", tile_rows=8)
-    assert float(a.price) == float(b.price)
-    assert float(a.stderr) == float(b.stderr)
-
-
 def test_path_dependent_payoffs_work():
     sim = SimParams(n_paths=50_000, n_steps=20)
-    vanilla = price_heston(OPT, DEMO_HESTON, sim, engine="xla", tile_rows=8)
-    asian = price_heston(OPT, DEMO_HESTON, sim, payoff="asian_call",
-                         engine="xla", tile_rows=8)
-    up_out = price_heston(OPT, DEMO_HESTON, sim, payoff="up_out_call",
-                          engine="xla", tile_rows=8)
+    vanilla = price_heston(OPT, DEMO_HESTON, sim, tile_rows=8)
+    asian = price_heston(OPT, DEMO_HESTON, sim, payoff="asian_call", tile_rows=8)
+    up_out = price_heston(OPT, DEMO_HESTON, sim, payoff="up_out_call", tile_rows=8)
     assert 0.0 < float(asian.price) < float(vanilla.price)
     assert 0.0 < float(up_out.price) < float(vanilla.price)
 
 
 def test_antithetic_reduces_stderr():
     sim = SimParams(n_paths=50_000, n_steps=20)
-    plain = price_heston(OPT, DEMO_HESTON, sim, engine="xla", tile_rows=8)
-    anti = price_heston(OPT, DEMO_HESTON, sim, engine="xla",
+    plain = price_heston(OPT, DEMO_HESTON, sim, tile_rows=8)
+    anti = price_heston(OPT, DEMO_HESTON, sim,
                         antithetic=True, tile_rows=8)
     assert float(anti.stderr) < float(plain.stderr)
 
@@ -78,7 +67,7 @@ def test_market_params_traced():
     sim = SimParams(n_paths=20_000, n_steps=10)
     prices = []
     for xi in (0.1, 0.3, 0.5):
-        res = price_heston(OPT, HestonDynamics(xi=xi), sim, engine="xla",
+        res = price_heston(OPT, HestonDynamics(xi=xi), sim,
                            tile_rows=8)
         prices.append(float(res.price))
     assert len(set(prices)) == 3

@@ -76,7 +76,7 @@ def test_qe_martingale_exact():
     opt0 = OptionParams(s0=100.0, t=1.0, k=0.0, r=0.03)
     res = price_heston(opt0, STRESS,
                        SimParams(n_paths=1 << 19, n_steps=4, seed=11),
-                       scheme="qe", engine="xla")
+                       scheme="qe")
     err = abs(float(res.price) - 100.0)
     assert err <= 3.0 * float(res.stderr), (float(res.price),
                                             float(res.stderr))
@@ -87,8 +87,8 @@ def test_qe_coarse_bias_beats_euler():
     at least 5x closer to the CF oracle."""
     cf = heston_call_cf(100.0, 100.0, 1.0, 0.03, *STRESS.astuple())
     sim = SimParams(n_paths=1 << 18, n_steps=8, seed=7)
-    eu = price_heston(OPT, STRESS, sim, scheme="euler", engine="xla")
-    qe = price_heston(OPT, STRESS, sim, scheme="qe", engine="xla")
+    eu = price_heston(OPT, STRESS, sim, scheme="euler")
+    qe = price_heston(OPT, STRESS, sim, scheme="qe")
     err_eu = abs(float(eu.price) - cf)
     err_qe = abs(float(qe.price) - cf)
     assert err_eu > 0.5  # Euler really is biased here (guards the gate)
@@ -101,36 +101,26 @@ def test_qe_matches_cf_moderate_steps():
     cf = heston_call_cf(100.0, 100.0, 1.0, 0.03, *STRESS.astuple())
     res = price_heston(OPT, STRESS,
                        SimParams(n_paths=1 << 19, n_steps=32, seed=5),
-                       scheme="qe", engine="xla", antithetic=True)
+                       scheme="qe", antithetic=True)
     tol = 4.0 * float(res.stderr) + 0.003 * cf
     assert abs(float(res.price) - cf) <= tol
 
 
-def test_qe_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=16, seed=3)
-    a = price_heston(OPT, STRESS, sim, scheme="qe", engine="pallas",
-                     tile_rows=8)
-    b = price_heston(OPT, STRESS, sim, scheme="qe", engine="xla",
-                     tile_rows=8)
-    assert float(a.price) == float(b.price)
-    assert float(a.stderr) == float(b.stderr)
-
-
 def test_qe_antithetic_reduces_stderr():
     sim = SimParams(n_paths=50_000, n_steps=16, seed=3)
-    plain = price_heston(OPT, STRESS, sim, scheme="qe", engine="xla",
+    plain = price_heston(OPT, STRESS, sim, scheme="qe",
                          tile_rows=8)
-    anti = price_heston(OPT, STRESS, sim, scheme="qe", engine="xla",
+    anti = price_heston(OPT, STRESS, sim, scheme="qe",
                         antithetic=True, tile_rows=8)
     assert float(anti.stderr) < float(plain.stderr)
 
 
 def test_qe_path_dependent_payoffs():
     sim = SimParams(n_paths=50_000, n_steps=16, seed=3)
-    vanilla = price_heston(OPT, STRESS, sim, scheme="qe", engine="xla",
+    vanilla = price_heston(OPT, STRESS, sim, scheme="qe",
                            tile_rows=8)
     asian = price_heston(OPT, STRESS, sim, scheme="qe",
-                         payoff="asian_call", engine="xla", tile_rows=8)
+                         payoff="asian_call", tile_rows=8)
     assert 0.0 < float(asian.price) < float(vanilla.price)
 
 
@@ -138,9 +128,9 @@ def test_qe_disjoint_stream_from_euler():
     """QE uses counters (id, 2j)/(id, 2j+1); Euler uses (id, j) — the
     schemes must not produce correlated estimates at the same seed."""
     sim = SimParams(n_paths=50_000, n_steps=64, seed=9)
-    eu = price_heston(OPT, STRESS, sim, scheme="euler", engine="xla",
+    eu = price_heston(OPT, STRESS, sim, scheme="euler",
                       tile_rows=8)
-    qe = price_heston(OPT, STRESS, sim, scheme="qe", engine="xla",
+    qe = price_heston(OPT, STRESS, sim, scheme="qe",
                       tile_rows=8)
     assert float(eu.price) != float(qe.price)
 
@@ -156,7 +146,7 @@ def test_cli_heston_qe_smoke(capsys):
 
     from mc_tpu.cli import main
     rc = main(["heston", "--scheme", "qe", "--n-paths", "20000",
-               "--n-steps", "8", "--engine", "xla"])
+               "--n-steps", "8"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["scheme"] == "qe"

@@ -44,7 +44,7 @@ def test_no_arbitrage_band_is_nan():
 def test_mc_price_to_iv():
     """Inverting an MC price recovers sigma within the MC error band."""
     from mc_tpu import SimParams, price
-    res = price(sim=SimParams(n_paths=1_000_000, n_steps=1), engine="xla",
+    res = price(sim=SimParams(n_paths=1_000_000, n_steps=1),
                 method="terminal")
     iv = float(bs_implied_vol(res.price, 100.0, 100.0, 1.0, 0.1))
     vega = float(bs_vega(100.0, 100.0, 1.0, 0.1, 0.2))

@@ -22,7 +22,7 @@ def _gate(res, want, n_se=3.5, bias=0.0):
 def test_flat_surface_is_bs_exact():
     """sigma constant: log-Euler is EXACT — plain BS gate."""
     surf = LocalVolSurface.flat(0.2, 20)
-    res = price_localvol(OptionParams(), surf, SIM, engine="xla",
+    res = price_localvol(OptionParams(), surf, SIM,
                          antithetic=True, tile_rows=8)
     _gate(res, float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2)))
 
@@ -32,7 +32,7 @@ def test_time_only_surface_is_averaged_bs():
     surf = LocalVolSurface.from_function(
         lambda x, t: 0.1 + 0.3 * t, 20)
     sg = np.asarray(surf.vols)[:, 0].astype(np.float64)
-    res = price_localvol(OptionParams(), surf, SIM, engine="xla",
+    res = price_localvol(OptionParams(), surf, SIM,
                          antithetic=True, tile_rows=8)
     _gate(res, float(bs_call(100.0, 100.0, 1.0, 0.1,
                              float(np.sqrt((sg ** 2).mean())))))
@@ -49,7 +49,7 @@ def test_cev_cross_model_gate():
         lambda x, t: sigma_atm * math.exp((beta - 1.0) * x),
         100, x_lo=-1.5, x_hi=1.5, n_knots=25)
     sim = SimParams(n_paths=400_000, n_steps=100)
-    res = price_localvol(OptionParams(), surf, sim, engine="xla",
+    res = price_localvol(OptionParams(), surf, sim,
                          antithetic=True, tile_rows=8)
     want = cev_call_closed_form(s0, 100.0, 1.0, 0.1,
                                 sigma_atm * s0 ** (1.0 - beta), beta)
@@ -61,7 +61,7 @@ def test_smile_raises_otm_wings():
     smile = LocalVolSurface.from_function(
         lambda x, t: 0.2 + 0.3 * x * x, 20)
     otm = OptionParams(k=130.0)
-    res = price_localvol(otm, smile, SIM, engine="xla", antithetic=True,
+    res = price_localvol(otm, smile, SIM, antithetic=True,
                          tile_rows=8)
     flat_bs = float(bs_call(100.0, 130.0, 1.0, 0.1, 0.2))
     assert float(res.price) > flat_bs + 3 * float(res.stderr)
@@ -71,23 +71,10 @@ def test_path_dependent_payoffs_run():
     sim = SimParams(n_paths=20_000, n_steps=20)
     surf = LocalVolSurface.from_function(
         lambda x, t: 0.2 + 0.1 * x * x, 20)
-    a = price_localvol(OptionParams(), surf, sim, payoff="asian_call",
-                       engine="xla", tile_rows=8)
+    a = price_localvol(OptionParams(), surf, sim, payoff="asian_call", tile_rows=8)
     b = price_localvol(OptionParams(p1=1.0, p2=18.0), surf, sim,
-                       payoff="bullet_call", engine="xla", tile_rows=8)
+                       payoff="bullet_call", tile_rows=8)
     assert float(a.price) > 0 and float(b.price) > 0
-
-
-def test_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=20)
-    surf = LocalVolSurface.from_function(
-        lambda x, t: 0.2 + 0.1 * x * x + 0.05 * t, 20)
-    a = price_localvol(OptionParams(), surf, sim, engine="pallas",
-                       tile_rows=8)
-    b = price_localvol(OptionParams(), surf, sim, engine="xla",
-                       tile_rows=8)
-    assert float(a.price) == float(b.price)
-    assert float(a.stderr) == float(b.stderr)
 
 
 def test_interpolation_matches_numpy():
@@ -136,7 +123,7 @@ def test_american_dominates_european_same_surface():
         lambda x, t: 0.2 + 0.3 * x * x, 50)
     amer = price_american_localvol(surf=surf, sim=sim)
     euro = price_localvol(OptionParams(), surf, sim,
-                          payoff="vanilla_put", engine="xla",
+                          payoff="vanilla_put",
                           antithetic=True, tile_rows=8)
     assert float(amer.price) > float(euro.price) + 0.2, (
         float(amer.price), float(euro.price))

@@ -141,18 +141,17 @@ def test_heston_american_two_pass_ordering():
 
 
 def test_heston_trajectories_grids():
-    """Grid self-consistency: the trajectory kernel's terminal-payoff
-    partials are BITWISE equal to the fused Heston pricing kernel's on
-    the same stream (same step loop, same fold/Kahan order), and the
-    (S, v) grids match an eager recomputation to f32 rounding (eager vs
-    jit-fused FMA differs by ~1 ulp on a few percent of entries)."""
+    """Grid self-consistency: the Heston family's trajectory grids carry
+    the same terminal-payoff moments as the Heston pricer on the same
+    stream (same step loop, same fold/Kahan order: bit for bit), and the
+    (S, v) grids match an eager recomputation to f32 rounding."""
     import jax.numpy as jnp
 
     from mc_tpu import rng
-    from mc_tpu.models.heston import (DEMO_HESTON, _heston_partials_pallas,
+    from mc_tpu.models.heston import (DEMO_HESTON, _heston_partials,
                                       _pack_heston, _unpack_heston,
-                                      heston_euler_step,
-                                      heston_trajectories_kernel)
+                                      heston_euler_step)
+    from mc_tpu.nmc_heston import HestonNMC
     from mc_tpu.ops import path_kernels as pk
     from mc_tpu.ops.payoffs import get_payoff
 
@@ -163,11 +162,9 @@ def test_heston_trajectories_grids():
     params = _pack_heston(opt, hes, n_steps)
     key = jnp.asarray(rng.derive_key(7, 0), jnp.uint32)
     po = get_payoff("vanilla_put")
-    s_g, v_g, c_g, pay_sum, _ = heston_trajectories_kernel(po, cfg, key,
-                                                           params)
-    from mc_tpu.ops._pallas import use_interpret
-    ref_sum, _ = _heston_partials_pallas(po, cfg, key, params, 0, None,
-                                         use_interpret())
+    s_g, v_g, c_g, pay_sum, _ = HestonNMC().trajectories(po, cfg, key,
+                                                         params)
+    ref_sum, _ = _heston_partials(po, cfg, key, params, 0, None)
     np.testing.assert_array_equal(np.asarray(pay_sum), np.asarray(ref_sum))
 
     # eager recomputation of the same stream (rounding-tolerant)
@@ -313,7 +310,7 @@ def test_basket_american_premium():
     from mc_tpu.models.basket import price_basket
     sim = SimParams(n_paths=100_000, n_steps=50)
     amer = price_american_basket(sim=sim)
-    euro = price_basket(sim=sim, payoff="vanilla_put", engine="xla",
+    euro = price_basket(sim=sim, payoff="vanilla_put",
                         tile_rows=8)
     assert float(amer.price) > float(euro.price) + 5.0 * (
         float(amer.stderr) + float(euro.stderr))

@@ -132,13 +132,3 @@ def test_rainbow_bounds_bracket_stulz():
     assert float(up2.price) > euro  # early-exercise premium survives
 
 
-def test_interpret_flag_consistent():
-    """The family trajectories default to the XLA builder, so interpret
-    must not change the stream: bitwise equal prices."""
-    sim = SimParams(n_paths=4096, n_steps=8)
-    a = price_american_rainbow(OPT, _two_asset(), sim, "put_on_min",
-                               interpret=True)
-    b = price_american_rainbow(OPT, _two_asset(), sim, "put_on_min",
-                               interpret=False)
-    assert float(a.price) == float(b.price)
-    assert float(a.stderr) == float(b.stderr)

@@ -34,8 +34,7 @@ def test_series_oracle_jumps_raise_otm_price():
 
 
 def test_terminal_matches_series():
-    res = price_merton(OPT, DEMO_MERTON, SIM, method="terminal",
-                       engine="xla", tile_rows=64)
+    res = price_merton(OPT, DEMO_MERTON, SIM, method="terminal", tile_rows=64)
     assert abs(float(res.price) - ORACLE) <= 3.5 * float(res.stderr), (
         float(res.price), ORACLE, float(res.stderr))
 
@@ -43,20 +42,9 @@ def test_terminal_matches_series():
 def test_euler_matches_series():
     """The per-step log increment is exact in law — no discretization
     bias, only MC noise, even at 50 steps."""
-    res = price_merton(OPT, DEMO_MERTON, SIM, method="euler",
-                       engine="xla", tile_rows=64)
+    res = price_merton(OPT, DEMO_MERTON, SIM, method="euler", tile_rows=64)
     assert abs(float(res.price) - ORACLE) <= 3.5 * float(res.stderr), (
         float(res.price), ORACLE, float(res.stderr))
-
-
-def test_pallas_xla_bitwise():
-    for method in ("terminal", "euler"):
-        a = price_merton(OPT, DEMO_MERTON, SIM, method=method,
-                         engine="pallas", tile_rows=64)
-        b = price_merton(OPT, DEMO_MERTON, SIM, method=method,
-                         engine="xla", tile_rows=64)
-        assert float(a.price) == float(b.price), method
-        assert float(a.stderr) == float(b.stderr), method
 
 
 def test_martingale_compensation():
@@ -64,15 +52,13 @@ def test_martingale_compensation():
 
     Priced as a K=0 call (payoff = S_T)."""
     res = price_merton(OptionParams(k=0.0), DEMO_MERTON, SIM,
-                       method="terminal", engine="xla", tile_rows=64)
+                       method="terminal", tile_rows=64)
     assert abs(float(res.price) - 100.0) <= 3.5 * float(res.stderr)
 
 
 def test_antithetic_unbiased_and_tighter():
-    plain = price_merton(OPT, DEMO_MERTON, SIM, method="euler",
-                         engine="xla", tile_rows=64)
-    anti = price_merton(OPT, DEMO_MERTON, SIM, method="euler",
-                        engine="xla", antithetic=True, tile_rows=64)
+    plain = price_merton(OPT, DEMO_MERTON, SIM, method="euler", tile_rows=64)
+    anti = price_merton(OPT, DEMO_MERTON, SIM, method="euler", antithetic=True, tile_rows=64)
     joint = np.hypot(float(plain.stderr), float(anti.stderr))
     assert abs(float(plain.price) - float(anti.price)) <= 4.0 * joint
     assert float(anti.stderr) < float(plain.stderr)
@@ -81,9 +67,8 @@ def test_antithetic_unbiased_and_tighter():
 def test_path_dependent_payoff_under_jumps():
     """Asian call under jumps: sane bounds (below vanilla, positive)."""
     asian = price_merton(OPT, DEMO_MERTON, SIM, payoff="asian_call",
-                         method="euler", engine="xla", tile_rows=64)
-    vanilla = price_merton(OPT, DEMO_MERTON, SIM, method="euler",
-                           engine="xla", tile_rows=64)
+                         method="euler", tile_rows=64)
+    vanilla = price_merton(OPT, DEMO_MERTON, SIM, method="euler", tile_rows=64)
     assert 0.0 < float(asian.price) < float(vanilla.price)
 
 
@@ -142,6 +127,5 @@ def test_dividend_yield_through_merton():
     opt = OptionParams(q=0.03)
     ref = merton_call_closed_form(100.0, 100.0, 1.0, 0.1, 0.2,
                                   lam=0.3, mu_j=-0.10, sigma_j=0.15, q=0.03)
-    res = price_merton(opt, DEMO_MERTON, SIM, method="terminal",
-                       engine="xla", tile_rows=64)
+    res = price_merton(opt, DEMO_MERTON, SIM, method="terminal", tile_rows=64)
     assert abs(float(res.price) - ref) <= 3.5 * float(res.stderr)

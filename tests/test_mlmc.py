@@ -106,7 +106,7 @@ def test_mlmc_asian_matches_fine_single_level():
                           n_per_level=(131072, 32768, 16384, 8192, 8192),
                           tile_rows=8)
     ref = price_heston(sim=SimParams(n_paths=1 << 20, n_steps=64),
-                       payoff="asian_call", engine="xla", tile_rows=8)
+                       payoff="asian_call", tile_rows=8)
     tol = 4.0 * (r.stderr + float(ref.stderr)) + 0.02
     assert abs(r.price - float(ref.price)) <= tol, (r.price,
                                                     float(ref.price))

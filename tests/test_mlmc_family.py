@@ -163,7 +163,7 @@ def test_merton_asian_coupling_decays_and_matches_fine_grid():
     assert r.variance_decay_rate() > 1.0, r.level_vars
     ref = price_merton(OptionParams(),
                        sim=SimParams(n_paths=1 << 19, n_steps=32),
-                       payoff="asian_call", engine="xla")
+                       payoff="asian_call")
     joint = np.hypot(r.stderr, float(ref.stderr))
     assert abs(r.price - float(ref.price)) <= 4.0 * joint
 

@@ -47,9 +47,8 @@ def test_one_device_mesh_bitwise_equals_single_chip(model):
     """A 1-device mesh must reproduce price_<model> BIT-for-BIT (same
     stream tag, same tiling, same fold/Kahan order)."""
     mesh = make_mesh(jax.devices()[:1])
-    single = _single_chip(model, engine="xla", tile_rows=8)
-    sharded = price_model_sharded(model, OPT, sim=SIM, mesh=mesh,
-                                  engine="xla", tile_rows=8)
+    single = _single_chip(model, tile_rows=8)
+    sharded = price_model_sharded(model, OPT, sim=SIM, mesh=mesh, tile_rows=8)
     assert float(single.price) == float(sharded.price), model
     assert float(single.stderr) == float(sharded.stderr), model
 
@@ -65,18 +64,6 @@ def test_mesh_size_invariance(model):
     np.testing.assert_allclose(float(a.payoff_mean), float(b.payoff_mean),
                                rtol=1e-6)
     np.testing.assert_allclose(float(a.stderr), float(b.stderr), rtol=1e-5)
-
-
-@pytest.mark.parametrize("model", SHARDED_MODELS)
-def test_engines_bitwise_on_mesh(model):
-    """pallas and xla shards agree bitwise on the 8-device mesh too."""
-    mesh = make_mesh(jax.devices()[:8])
-    a = price_model_sharded(model, OPT, sim=SIM, mesh=mesh,
-                            engine="pallas", tile_rows=8)
-    b = price_model_sharded(model, OPT, sim=SIM, mesh=mesh,
-                            engine="xla", tile_rows=8)
-    assert float(a.price) == float(b.price), model
-    assert float(a.stderr) == float(b.stderr), model
 
 
 def test_sharded_bullet_payoff_under_heston():

@@ -66,7 +66,7 @@ def test_cpu_pricer_matches_engines():
     px, se = native.price_cpu("vanilla_call", key, sim.n_paths, sim.n_steps)
     # method pinned: the native stream twin rides the classic per-path
     # counter stream (the round-5 default would pick terminal_pair here).
-    ours = price(sim=sim, engine="xla", tile_rows=8, method="terminal")
+    ours = price(sim=sim, tile_rows=8, method="terminal")
     # Same draws; expf/exp rounding differs per element, so ~1e-5 relative.
     assert px == pytest.approx(float(ours.price), rel=5e-5)
     assert se == pytest.approx(float(ours.stderr), rel=1e-3)
@@ -75,7 +75,7 @@ def test_cpu_pricer_matches_engines():
                                p1=2.0, p2=12.0)
     from mc_tpu import OptionParams
     oursb = price(option=OptionParams(p1=2.0, p2=12.0), sim=sim,
-                  payoff="bullet_call", engine="xla", tile_rows=8)
+                  payoff="bullet_call", tile_rows=8)
     assert pb == pytest.approx(float(oursb.price), rel=1e-3, abs=2e-3)
 
 
@@ -120,6 +120,6 @@ def test_cpu_pair_pricer_matches_engines():
     n = 100_000
     px, se = native.price_cpu("vanilla_call_pair", key, n, 10)
     ours = price(sim=SimParams(n_paths=n, n_steps=10),
-                 method="terminal_pair", engine="xla", tile_rows=8)
+                 method="terminal_pair", tile_rows=8)
     assert px == pytest.approx(float(ours.price), rel=5e-5)
     assert se == pytest.approx(float(ours.stderr), rel=1e-3)

@@ -15,7 +15,8 @@ SIM = SimParams(n_paths=1024, n_steps=8, n_paths_inner=64)
 
 @pytest.fixture(scope="module")
 def fused():
-    return price_nmc(OPT, SIM, strategy="fused", engine="pallas")
+    """The kernel pipeline (trajectories + inner kernel), interpreted."""
+    return price_nmc(OPT, SIM, engine="pallas", interpret=True)
 
 
 def test_surface_shape(fused):
@@ -23,13 +24,6 @@ def test_surface_shape(fused):
     assert n_steps == SIM.n_steps and lanes == 128
     assert rows * lanes >= SIM.n_paths  # padded to whole tiles
     assert fused.surface_matrix().shape == (SIM.n_paths, SIM.n_steps)
-
-
-def test_strategies_bitwise_identical(fused):
-    grid = price_nmc(OPT, SIM, strategy="grid", engine="pallas")
-    np.testing.assert_array_equal(np.asarray(fused.surface),
-                                  np.asarray(grid.surface))
-    assert float(fused.outer.price) == float(grid.outer.price)
 
 
 def test_engines_bitwise_identical(fused):
@@ -73,7 +67,7 @@ def test_surface_mean_close_to_outer(fused):
 def test_vanilla_nmc_tower():
     """Vanilla payoff: every surface column estimates the BS price."""
     sim = SimParams(n_paths=2048, n_steps=4, n_paths_inner=128)
-    res = price_nmc(OptionParams(), sim, payoff="vanilla_call", engine="xla")
+    res = price_nmc(OptionParams(), sim, payoff="vanilla_call")
     bs = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     surf = np.asarray(res.surface_matrix())
     for j in range(sim.n_steps):
@@ -82,8 +76,8 @@ def test_vanilla_nmc_tower():
 
 def test_remaining_discount():
     """discount='remaining': last step has no discount at all."""
-    res = price_nmc(OPT, SIM, engine="xla", discount="remaining")
-    res_full = price_nmc(OPT, SIM, engine="xla", discount="full")
+    res = price_nmc(OPT, SIM, discount="remaining")
+    res_full = price_nmc(OPT, SIM, discount="full")
     last = np.asarray(res.surface_matrix())[:, -1]
     last_full = np.asarray(res_full.surface_matrix())[:, -1]
     nz = last_full > 0
@@ -95,8 +89,8 @@ def test_remaining_discount():
 def test_outer_matches_plain_price():
     """The NMC outer estimate equals price() on the same stream."""
     from mc_tpu import price
-    res = price_nmc(OPT, SIM, engine="xla")
-    plain = price(OPT, SIM, payoff="bullet_call", engine="xla", tile_rows=8)
+    res = price_nmc(OPT, SIM)
+    plain = price(OPT, SIM, payoff="bullet_call", tile_rows=8)
     assert float(res.outer.price) == float(plain.price)
 
 
@@ -123,16 +117,6 @@ def test_inner_counter_space_guard():
 
 # --- nested MC under Heston (model-family x NMC composition) --------------
 
-def test_nmc_heston_engines_bitwise():
-    from mc_tpu.nmc_heston import price_nmc_heston
-    sim = SimParams(n_paths=2048, n_steps=8, n_paths_inner=8)
-    a = price_nmc_heston(sim=sim, engine="pallas")
-    b = price_nmc_heston(sim=sim, engine="xla")
-    assert float(a.outer.price) == float(b.outer.price)
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
-
-
 def test_nmc_heston_tower_property():
     """With the full e^{-rT} discount, the mean surface value at EVERY
     step is an unbiased estimate of the European Heston price (tower
@@ -141,7 +125,7 @@ def test_nmc_heston_tower_property():
     from mc_tpu.models.heston import DEMO_HESTON, heston_call_cf
     from mc_tpu.nmc_heston import price_nmc_heston
     sim = SimParams(n_paths=16384, n_steps=8, n_paths_inner=32)
-    r = price_nmc_heston(sim=sim, engine="xla")
+    r = price_nmc_heston(sim=sim)
     cf = heston_call_cf(100.0, 100.0, 1.0, 0.1, *DEMO_HESTON.astuple())
     # Euler bias at 8 steps + MC noise: generous combined tolerance
     assert abs(float(r.surface_mean) - cf) < 0.02 * cf + 4 * 0.15, (
@@ -154,7 +138,7 @@ def test_nmc_heston_exposure_profile():
     """EE under stochastic vol: positive, finite, PFE above EE."""
     from mc_tpu.nmc_heston import price_nmc_heston
     sim = SimParams(n_paths=4096, n_steps=8, n_paths_inner=16)
-    r = price_nmc_heston(sim=sim, engine="xla", payoff="vanilla_call")
+    r = price_nmc_heston(sim=sim, payoff="vanilla_call")
     ee, pfe = r.exposure_profile()
     assert np.all(np.asarray(ee) > 0) and np.all(np.isfinite(np.asarray(ee)))
     assert np.all(np.asarray(pfe) >= np.asarray(ee) - 1e-5)
@@ -172,7 +156,7 @@ def test_cva_from_exposure():
     profile, scales linearly in (1-R), and vanishes at zero hazard."""
     from mc_tpu.nmc import price_nmc
     sim = SimParams(n_paths=2048, n_steps=8, n_paths_inner=8)
-    res = price_nmc(OptionParams(p1=1.0, p2=6.0), sim, engine="xla")
+    res = price_nmc(OptionParams(p1=1.0, p2=6.0), sim)
     ee, _ = res.exposure_profile()
     lam, rec = 0.02, 0.4
     t = np.arange(1, 9) / 8.0
@@ -191,7 +175,7 @@ def test_cva_uses_option_maturity():
     spreads default probability over [0, 2]."""
     from mc_tpu.nmc import price_nmc
     sim = SimParams(n_paths=1024, n_steps=8, n_paths_inner=8)
-    res = price_nmc(OptionParams(t=2.0, p1=1.0, p2=6.0), sim, engine="xla")
+    res = price_nmc(OptionParams(t=2.0, p1=1.0, p2=6.0), sim)
     assert float(res.t_horizon) == 2.0
     assert float(res.cva(0.02)) == pytest.approx(
         float(res.cva(0.02, t_horizon=2.0)), rel=1e-6)
@@ -201,14 +185,3 @@ def test_cva_uses_option_maturity():
         float(res.cva(0.02, t_horizon=1.0)), rel=1e-4)
 
 
-def test_hw_rng_validation():
-    """hw inner streams are chip-only (stateful, no XLA dual): the xla
-    engine must refuse, and unknown sources fail in NMCConfig."""
-    from mc_tpu.nmc import price_nmc
-    from mc_tpu.ops.nmc_kernels import NMCConfig
-    with pytest.raises(ValueError, match="hw"):
-        price_nmc(engine="xla", rng_source="hw")
-    with pytest.raises(ValueError, match="rng_source"):
-        NMCConfig(n_paths=1024, n_steps=4, n_inner=8, rng_source="curand")
-    # hw skips the counter-span guard (stateful streams have no counter)
-    NMCConfig(n_paths=1024, n_steps=1000, n_inner=100_000, rng_source="hw")

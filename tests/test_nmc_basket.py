@@ -13,22 +13,12 @@ SIM = SimParams(n_paths=4096, n_steps=8, n_paths_inner=16)
 OPT = OptionParams()
 
 
-def test_engines_bitwise():
-    a = price_nmc_basket(sim=SIM, engine="pallas", tile_rows=8)
-    b = price_nmc_basket(sim=SIM, engine="xla", tile_rows=8)
-    assert float(a.outer.price) == float(b.outer.price)
-    assert float(a.outer.stderr) == float(b.outer.stderr)
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
-
-
 def test_ee_flat_at_basket_call_price():
     """Fully-discounted conditional basket-call value is a martingale:
     EE_j flat at the time-0 basket price (high-path MC reference)."""
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_basket(sim=sim, engine="xla")
-    ref = price_basket(sim=SimParams(n_paths=400_000, n_steps=8),
-                       engine="xla")
+    res = price_nmc_basket(sim=sim)
+    ref = price_basket(sim=SimParams(n_paths=400_000, n_steps=8))
     ee, pfe = res.exposure_profile()
     np.testing.assert_allclose(np.asarray(ee), float(ref.price), rtol=0.04)
     assert np.all(np.asarray(pfe) >= np.asarray(ee) - 1e-5)
@@ -43,7 +33,7 @@ def test_margrabe_exposure_flat_at_closed_form():
         weights=np.array([1.0, -1.0], np.float32),
         corr=np.array([[1.0, 0.4], [0.4, 1.0]], np.float32))
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_basket(OptionParams(k=0.0), dyn, sim, engine="xla")
+    res = price_nmc_basket(OptionParams(k=0.0), dyn, sim)
     want = margrabe(100.0, 95.0, 1.0, 0.25, 0.2, 0.4)
     ee, _ = res.exposure_profile()
     np.testing.assert_allclose(np.asarray(ee), want, rtol=0.04)
@@ -59,14 +49,14 @@ def test_d1_degenerates_to_gbm():
                          weights=np.array([1.0], np.float32),
                          corr=np.eye(1, dtype=np.float32))
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_basket(OPT, dyn, sim, engine="xla")
+    res = price_nmc_basket(OPT, dyn, sim)
     want = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert float(res.surface_mean) == pytest.approx(want, rel=0.03)
 
 
 def test_path_dependent_state_resumes():
     res = price_nmc_basket(OptionParams(p1=1.0, p2=6.0), sim=SIM,
-                           payoff="bullet_call", engine="xla")
+                           payoff="bullet_call")
     assert np.all(np.isfinite(np.asarray(res.surface_matrix())))
     assert float(res.outer.stderr) > 0
 
@@ -81,7 +71,7 @@ def test_correlation_moves_exposure_tail():
                              sigmas=np.full(3, 0.2, np.float32),
                              weights=np.full(3, 1 / 3, np.float32),
                              corr=corr)
-        r = price_nmc_basket(OPT, dyn, SIM, engine="xla")
+        r = price_nmc_basket(OPT, dyn, SIM)
         _, pfe = r.exposure_profile()
         return float(np.asarray(pfe)[-1])
     assert pfe_last(0.8) > pfe_last(0.0)

@@ -20,7 +20,7 @@ NO_JUMP = BatesDynamics(lam=0.0)
 def test_tower_property():
     """For a European payoff the conditional value at EVERY point has the
     same expectation: surface_mean ~ the Bates CF price."""
-    res = price_nmc_bates(OPT, DEMO_BATES, SIM, engine="xla")
+    res = price_nmc_bates(OPT, DEMO_BATES, SIM)
     ref = float(bates_call_cf(100.0, 100.0, 1.0, 0.1, 0.04, 2.0, 0.04,
                               0.3, -0.7, 0.3, -0.10, 0.15))
     assert float(res.surface_mean) == pytest.approx(ref, rel=0.05), (
@@ -28,18 +28,10 @@ def test_tower_property():
     assert abs(float(res.outer.price) - ref) <= 4.0 * float(res.outer.stderr)
 
 
-def test_engines_bitwise():
-    a = price_nmc_bates(OPT, DEMO_BATES, SIM, engine="pallas")
-    b = price_nmc_bates(OPT, DEMO_BATES, SIM, engine="xla")
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
-    assert float(a.outer.price) == float(b.outer.price)
-
-
 def test_heston_limit():
     """lam=0 collapses Bates to Heston exactly (per-step the jump count is
     identically zero): the NMC surface mean matches the Heston CF oracle."""
-    res = price_nmc_bates(OPT, NO_JUMP, SIM, engine="xla")
+    res = price_nmc_bates(OPT, NO_JUMP, SIM)
     ref = float(heston_call_cf(100.0, 100.0, 1.0, 0.1, 0.04, 2.0, 0.04,
                                0.3, -0.7))
     assert float(res.surface_mean) == pytest.approx(ref, rel=0.05), (
@@ -56,18 +48,16 @@ def test_jumps_fatten_pfe_beyond_matched_vol_heston():
     """PFE(97.5%) under SVJ exceeds the matched-diffusion-vol Heston
     profile (the lam=0 limit of the same family) — the XVA case for
     crash risk on top of stochastic vol (module docstring claim)."""
-    heston = price_nmc_bates(OPT, NO_JUMP, SIM, engine="xla")
+    heston = price_nmc_bates(OPT, NO_JUMP, SIM)
     svj = price_nmc_bates(OPT, BatesDynamics(lam=1.0, mu_j=0.05,
-                                             sigma_j=0.25), SIM,
-                          engine="xla")
+                                             sigma_j=0.25), SIM)
     assert _pfe(svj) > _pfe(heston)
 
 
 def test_cva_under_jumps_exceeds_no_jump():
-    nj = price_nmc_bates(OPT, NO_JUMP, SIM, engine="xla")
+    nj = price_nmc_bates(OPT, NO_JUMP, SIM)
     wj = price_nmc_bates(OPT, BatesDynamics(lam=1.0, mu_j=0.05,
-                                            sigma_j=0.25), SIM,
-                         engine="xla")
+                                            sigma_j=0.25), SIM)
     cva_nj = float(nj.cva(hazard_rate=0.02, recovery=0.4))
     cva_wj = float(wj.cva(hazard_rate=0.02, recovery=0.4))
     assert cva_wj > cva_nj > 0.0

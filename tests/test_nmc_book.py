@@ -19,10 +19,9 @@ def _book(ks, **kw):
 
 def test_b1_bitwise_equals_price_nmc():
     opt = _book([100.0], p1=[1.0], p2=[6.0])
-    b = price_nmc_book(opt, SIM, payoff="bullet_call", tile_rows=8,
-                       engine="xla")
+    b = price_nmc_book(opt, SIM, payoff="bullet_call", tile_rows=8)
     s = price_nmc(OptionParams(p1=1.0, p2=6.0), SIM, payoff="bullet_call",
-                  tile_rows=8, engine="xla")
+                  tile_rows=8)
     np.testing.assert_array_equal(np.asarray(b.net_surface),
                                   np.asarray(s.surface))
     assert float(b.outers.price[0]) == float(s.outer.price)
@@ -34,8 +33,7 @@ def test_netting_subadditivity():
     inequality the netted profile exists to capture."""
     opt = _book([90.0, 100.0, 110.0])
     w = np.array([1.0, -2.0, 1.0], np.float32)
-    r = price_nmc_book(opt, SIM, payoff="vanilla_call", weights=w,
-                       engine="xla")
+    r = price_nmc_book(opt, SIM, payoff="vanilla_call", weights=w)
     ee_net, pfe_net = r.exposure_profile()
     sum_ee = np.asarray(r.ee_contract).sum(axis=0)
     assert np.all(np.asarray(ee_net) <= sum_ee + 1e-5)
@@ -50,27 +48,15 @@ def test_long_short_collapse():
     law)."""
     opt = _book([100.0, 100.0])
     r = price_nmc_book(opt, SIM, payoff="vanilla_call",
-                       weights=[1.0, -1.0], engine="xla")
+                       weights=[1.0, -1.0])
     np.testing.assert_array_equal(np.asarray(r.net_surface),
                                   np.zeros_like(np.asarray(r.net_surface)))
     assert float(r.net_outer_price) == 0.0
 
 
-def test_engines_bitwise():
-    opt = _book([95.0, 105.0])
-    a = price_nmc_book(opt, SIM, payoff="vanilla_call", engine="pallas",
-                       tile_rows=8)
-    b = price_nmc_book(opt, SIM, payoff="vanilla_call", engine="xla",
-                       tile_rows=8)
-    np.testing.assert_array_equal(np.asarray(a.net_surface),
-                                  np.asarray(b.net_surface))
-    np.testing.assert_array_equal(np.asarray(a.outers.price),
-                                  np.asarray(b.outers.price))
-
-
 def test_cva_on_netted_profile():
     opt = _book([90.0, 110.0])
-    r = price_nmc_book(opt, SIM, payoff="vanilla_call", engine="xla")
+    r = price_nmc_book(opt, SIM, payoff="vanilla_call")
     cva = float(r.cva(0.02))
     assert 0.0 < cva < float(np.asarray(r.ee_contract).sum())
 
@@ -89,39 +75,31 @@ def test_book_under_model_families():
     NMC, CRN netting collapses long/short, engines bitwise."""
     from mc_tpu.nmc_heston import price_nmc_heston
     opt1 = _book([100.0])
-    b = price_nmc_book(opt1, SIM, model="heston", engine="xla",
+    b = price_nmc_book(opt1, SIM, model="heston",
                        tile_rows=8)
-    s = price_nmc_heston(sim=SIM, engine="xla", tile_rows=8)
+    s = price_nmc_heston(sim=SIM, tile_rows=8)
     np.testing.assert_array_equal(np.asarray(b.net_surface),
                                   np.asarray(s.surface))
     assert float(b.outers.price[0]) == float(s.outer.price)
 
     opt2 = _book([100.0, 100.0])
     r = price_nmc_book(opt2, SIM, model="vasicek",
-                       weights=[1.0, -1.0], engine="xla", tile_rows=8)
+                       weights=[1.0, -1.0], tile_rows=8)
     np.testing.assert_array_equal(np.asarray(r.net_surface),
                                   np.zeros_like(np.asarray(r.net_surface)))
-
-    opt3 = _book([90.0, 110.0])
-    a = price_nmc_book(opt3, SIM, model="merton", engine="pallas",
-                       tile_rows=8)
-    bx = price_nmc_book(opt3, SIM, model="merton", engine="xla",
-                        tile_rows=8)
-    np.testing.assert_array_equal(np.asarray(a.net_surface),
-                                  np.asarray(bx.net_surface))
 
 
 def test_book_under_basket():
     """Basket netting: B=1 bitwise to price_nmc_basket; contracts net on
     the SAME correlated d-asset scenarios."""
     from mc_tpu.nmc_basket import price_nmc_basket
-    b = price_nmc_book(_book([100.0]), SIM, model="basket", engine="xla",
+    b = price_nmc_book(_book([100.0]), SIM, model="basket",
                        tile_rows=8)
-    s = price_nmc_basket(sim=SIM, engine="xla", tile_rows=8)
+    s = price_nmc_basket(sim=SIM, tile_rows=8)
     np.testing.assert_array_equal(np.asarray(b.net_surface),
                                   np.asarray(s.surface))
     r = price_nmc_book(_book([100.0, 100.0]), SIM, model="basket",
-                       weights=[1.0, -1.0], engine="xla", tile_rows=8)
+                       weights=[1.0, -1.0], tile_rows=8)
     assert float(r.net_outer_price) == 0.0
 
 

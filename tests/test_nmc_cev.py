@@ -17,7 +17,7 @@ def test_ee_flat_at_cev_price():
     """Fully-discounted conditional value of a call is a martingale:
     EE_j == the Schroder closed-form CEV price at EVERY step."""
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_cev(sim=sim, engine="xla")
+    res = price_nmc_cev(sim=sim)
     want = cev_call_closed_form(100.0, 100.0, 1.0, 0.1,
                                 DEMO_CEV.sigma_lv, DEMO_CEV.beta)
     ee, pfe = res.exposure_profile()
@@ -29,26 +29,15 @@ def test_ee_flat_at_cev_price():
 def test_beta_one_limit_matches_bs():
     """beta -> 1 with sigma_lv = 0.2 is GBM: surface mean ~= BS call."""
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_cev(dyn=CEVDynamics(sigma_lv=0.2, beta=1.0), sim=sim,
-                        engine="xla")
+    res = price_nmc_cev(dyn=CEVDynamics(sigma_lv=0.2, beta=1.0), sim=sim)
     want = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert float(res.surface_mean) == pytest.approx(want, rel=0.03)
-
-
-def test_engines_bitwise():
-    sim = SimParams(n_paths=2048, n_steps=4, n_paths_inner=8)
-    a = price_nmc_cev(sim=sim, engine="pallas", tile_rows=8)
-    b = price_nmc_cev(sim=sim, engine="xla", tile_rows=8)
-    assert float(a.outer.price) == float(b.outer.price)
-    assert float(a.outer.stderr) == float(b.outer.stderr)
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
 
 
 def test_path_dependent_state_resumes():
     sim = SimParams(n_paths=2048, n_steps=8, n_paths_inner=4)
     res = price_nmc_cev(OptionParams(p1=1.0, p2=6.0), DEMO_CEV, sim,
-                        payoff="bullet_call", engine="xla")
+                        payoff="bullet_call")
     assert np.all(np.isfinite(np.asarray(res.surface_matrix())))
     assert float(res.outer.stderr) > 0
 

@@ -17,8 +17,7 @@ def test_flat_surface_ee_flat_at_bs():
     conditional value is a martingale, so EE_j == the BS price at EVERY
     step (the smile analogue of the zcb gate)."""
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_localvol(OPT, LocalVolSurface.flat(0.2, 8), sim,
-                             engine="xla")
+    res = price_nmc_localvol(OPT, LocalVolSurface.flat(0.2, 8), sim)
     want = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     ee, pfe = res.exposure_profile()
     np.testing.assert_allclose(np.asarray(ee), want, rtol=0.04)
@@ -29,8 +28,7 @@ def test_flat_surface_ee_flat_at_bs():
 def test_tower_property_under_smile():
     """Surface mean == outer price under the demo smile (tower)."""
     sim = SimParams(n_paths=16_384, n_steps=8, n_paths_inner=32)
-    res = price_nmc_localvol(OPT, LocalVolSurface.demo(8), sim,
-                             engine="xla")
+    res = price_nmc_localvol(OPT, LocalVolSurface.demo(8), sim)
     assert float(res.surface_mean) == pytest.approx(
         float(res.outer.price), rel=0.05)
     assert float(res.outer.stderr) > 0
@@ -41,7 +39,7 @@ def test_smile_widens_exposure_quantiles():
     PFE-EE gap exceeds the flat-surface gap (EE itself is pinned by the
     martingale property)."""
     def gap(surface):
-        r = price_nmc_localvol(OPT, surface, SIM, engine="xla")
+        r = price_nmc_localvol(OPT, surface, SIM)
         ee, pfe = r.exposure_profile()
         return float(np.asarray(pfe)[-1] - np.asarray(ee)[-1])
     strong = LocalVolSurface.from_function(
@@ -49,22 +47,11 @@ def test_smile_widens_exposure_quantiles():
     assert gap(strong) > gap(LocalVolSurface.flat(0.2, 8))
 
 
-def test_engines_bitwise():
-    sim = SimParams(n_paths=2048, n_steps=4, n_paths_inner=8)
-    surf = LocalVolSurface.demo(4)
-    a = price_nmc_localvol(OPT, surf, sim, engine="pallas", tile_rows=8)
-    b = price_nmc_localvol(OPT, surf, sim, engine="xla", tile_rows=8)
-    assert float(a.outer.price) == float(b.outer.price)
-    assert float(a.outer.stderr) == float(b.outer.stderr)
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
-
-
 def test_path_dependent_state_resumes():
     sim = SimParams(n_paths=2048, n_steps=8, n_paths_inner=4)
     res = price_nmc_localvol(OptionParams(p1=1.0, p2=6.0),
                              LocalVolSurface.demo(8), sim,
-                             payoff="bullet_call", engine="xla")
+                             payoff="bullet_call")
     assert np.all(np.isfinite(np.asarray(res.surface_matrix())))
     assert float(res.outer.stderr) > 0
 

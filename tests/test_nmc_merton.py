@@ -14,7 +14,7 @@ SIM = SimParams(n_paths=4096, n_steps=10, n_paths_inner=64)
 def test_tower_property():
     """For a European payoff the conditional value at EVERY point has the
     same expectation: surface_mean ~ the European Merton price."""
-    res = price_nmc_merton(OPT, DEMO_MERTON, SIM, engine="xla")
+    res = price_nmc_merton(OPT, DEMO_MERTON, SIM)
     ref = merton_call_closed_form(100.0, 100.0, 1.0, 0.1, 0.2,
                                   lam=0.3, mu_j=-0.10, sigma_j=0.15)
     # surface_mean averages n_paths*n_steps correlated estimates
@@ -24,18 +24,10 @@ def test_tower_property():
     assert abs(float(res.outer.price) - ref) <= 4.0 * float(res.outer.stderr)
 
 
-def test_engines_bitwise():
-    a = price_nmc_merton(OPT, DEMO_MERTON, SIM, engine="pallas")
-    b = price_nmc_merton(OPT, DEMO_MERTON, SIM, engine="xla")
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
-    assert float(a.outer.price) == float(b.outer.price)
-
-
 def test_deterministic_last_step():
     """At the last stored point (j = n_steps-1) zero substeps remain: the
     conditional value is the discounted payoff at the stored state."""
-    res = price_nmc_merton(OPT, DEMO_MERTON, SIM, engine="xla",
+    res = price_nmc_merton(OPT, DEMO_MERTON, SIM,
                            payoff="vanilla_call")
     surf = np.asarray(res.surface)  # (n_steps, rows, 128)
     last = surf[-1].ravel()[: SIM.n_paths]
@@ -47,10 +39,9 @@ def test_jumps_fatten_the_exposure_tail():
     """PFE(97.5%) under jumps exceeds the no-jump profile at matched
     diffusion vol — the XVA case for jump models."""
     from mc_tpu.models.merton import MertonDynamics
-    nj = price_nmc_merton(OPT, MertonDynamics(lam=0.0), SIM, engine="xla")
+    nj = price_nmc_merton(OPT, MertonDynamics(lam=0.0), SIM)
     wj = price_nmc_merton(OPT, MertonDynamics(lam=1.0, mu_j=0.05,
-                                              sigma_j=0.25), SIM,
-                          engine="xla")
+                                              sigma_j=0.25), SIM)
     q = 0.975
     # compare the mean over dates of the per-date 97.5% exposure quantile
     def pfe(res):
@@ -63,10 +54,9 @@ def test_jumps_fatten_the_exposure_tail():
 
 def test_cva_under_jumps_exceeds_no_jump():
     from mc_tpu.models.merton import MertonDynamics
-    nj = price_nmc_merton(OPT, MertonDynamics(lam=0.0), SIM, engine="xla")
+    nj = price_nmc_merton(OPT, MertonDynamics(lam=0.0), SIM)
     wj = price_nmc_merton(OPT, MertonDynamics(lam=1.0, mu_j=0.05,
-                                              sigma_j=0.25), SIM,
-                          engine="xla")
+                                              sigma_j=0.25), SIM)
     cva_nj = float(nj.cva(hazard_rate=0.02, recovery=0.4))
     cva_wj = float(wj.cva(hazard_rate=0.02, recovery=0.4))
     assert cva_wj > cva_nj > 0.0

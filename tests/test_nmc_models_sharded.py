@@ -25,7 +25,7 @@ SINGLE = {
 
 @pytest.mark.parametrize("model", sorted(SINGLE))
 def test_one_device_mesh_bitwise(model):
-    single = SINGLE[model](sim=SIM, engine="pallas", tile_rows=8)
+    single = SINGLE[model](sim=SIM, tile_rows=8)
     m1 = price_nmc_model_sharded(model, sim=SIM,
                                  mesh=make_mesh(jax.devices()[:1]),
                                  tile_rows=8)

@@ -26,22 +26,12 @@ def _two_asset(rho=0.4):
         corr=np.array([[1.0, rho], [rho, 1.0]], np.float32))
 
 
-def test_engines_bitwise():
-    a = price_nmc_rainbow(sim=SIM, engine="pallas", tile_rows=8)
-    b = price_nmc_rainbow(sim=SIM, engine="xla", tile_rows=8)
-    assert float(a.outer.price) == float(b.outer.price)
-    assert float(a.outer.stderr) == float(b.outer.stderr)
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
-
-
 @pytest.mark.slow
 def test_ee_flat_at_stulz_max_call():
     """Fully-discounted conditional call-on-max value is a martingale:
     EE_j flat at the Stulz closed form at EVERY step."""
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_rainbow(OPT, _two_asset(), sim, "call_on_max",
-                            engine="xla")
+    res = price_nmc_rainbow(OPT, _two_asset(), sim, "call_on_max")
     want = float(stulz_max_call(100.0, 100.0, 100.0, 1.0, 0.1,
                                 0.25, 0.2, 0.4))
     ee, pfe = res.exposure_profile()
@@ -53,8 +43,7 @@ def test_ee_flat_at_stulz_max_call():
 @pytest.mark.slow
 def test_put_on_min_vs_stulz():
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_rainbow(OPT, _two_asset(), sim, "put_on_min",
-                            engine="xla")
+    res = price_nmc_rainbow(OPT, _two_asset(), sim, "put_on_min")
     want = float(stulz_min_put(100.0, 100.0, 100.0, 1.0, 0.1,
                                0.25, 0.2, 0.4))
     assert float(res.surface_mean) == pytest.approx(want, rel=0.05)
@@ -64,8 +53,8 @@ def test_d1_max_equals_min_bitwise():
     """With one asset the order statistic IS the asset: the max and min
     families run the identical program on the identical stream."""
     dyn = _demo_basket(d=1)
-    a = price_nmc_rainbow(OPT, dyn, SIM, "call_on_max", engine="xla")
-    b = price_nmc_rainbow(OPT, dyn, SIM, "call_on_min", engine="xla")
+    a = price_nmc_rainbow(OPT, dyn, SIM, "call_on_max")
+    b = price_nmc_rainbow(OPT, dyn, SIM, "call_on_min")
     assert float(a.outer.price) == float(b.outer.price)
     np.testing.assert_array_equal(np.asarray(a.surface),
                                   np.asarray(b.surface))
@@ -78,7 +67,7 @@ def test_d1_degenerates_to_bs():
                          weights=np.array([1.0], np.float32),
                          corr=np.eye(1, dtype=np.float32))
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_rainbow(OPT, dyn, sim, "call_on_max", engine="xla")
+    res = price_nmc_rainbow(OPT, dyn, sim, "call_on_max")
     want = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert float(res.surface_mean) == pytest.approx(want, rel=0.03)
 
@@ -87,15 +76,14 @@ def test_correlation_orders_best_of():
     """Lower correlation raises the best-of call (more dispersion in
     the maximum): surface means strictly ordered in rho."""
     def mean(rho):
-        r = price_nmc_rainbow(OPT, _two_asset(rho), SIM, "call_on_max",
-                              engine="xla")
+        r = price_nmc_rainbow(OPT, _two_asset(rho), SIM, "call_on_max")
         return float(r.surface_mean)
     assert mean(0.0) > mean(0.9)
 
 
 def test_sharded_one_device_bitwise():
     from mc_tpu.parallel import make_mesh, price_nmc_model_sharded
-    single = price_nmc_rainbow(sim=SIM, engine="pallas", tile_rows=8)
+    single = price_nmc_rainbow(sim=SIM, tile_rows=8)
     m1 = price_nmc_model_sharded("rainbow", sim=SIM,
                                  mesh=make_mesh(jax.devices()[:1]),
                                  tile_rows=8)
@@ -104,9 +92,3 @@ def test_sharded_one_device_bitwise():
                                   np.asarray(single.surface))
 
 
-def test_fused_strategy_bitwise():
-    g = price_nmc_rainbow(sim=SIM, strategy="grid", tile_rows=8)
-    f = price_nmc_rainbow(sim=SIM, strategy="fused", tile_rows=8)
-    assert float(g.outer.price) == float(f.outer.price)
-    np.testing.assert_array_equal(np.asarray(g.surface),
-                                  np.asarray(f.surface))

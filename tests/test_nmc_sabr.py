@@ -12,23 +12,12 @@ from mc_tpu.oracle import bs_call
 OPT = OptionParams()
 
 
-def test_engines_bitwise():
-    sim = SimParams(n_paths=2048, n_steps=4, n_paths_inner=8)
-    a = price_nmc_sabr(sim=sim, engine="pallas", tile_rows=8)
-    b = price_nmc_sabr(sim=sim, engine="xla", tile_rows=8)
-    assert float(a.outer.price) == float(b.outer.price)
-    assert float(a.outer.stderr) == float(b.outer.stderr)
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
-
-
 def test_ee_flat_at_sabr_price():
     """F is a forward-measure martingale, so the fully-discounted
     conditional call value is flat at the time-0 SABR price."""
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_sabr(sim=sim, engine="xla")
-    ref = price_sabr(sim=SimParams(n_paths=400_000, n_steps=8),
-                     engine="xla")
+    res = price_nmc_sabr(sim=sim)
+    ref = price_sabr(sim=SimParams(n_paths=400_000, n_steps=8))
     ee, pfe = res.exposure_profile()
     np.testing.assert_allclose(np.asarray(ee), float(ref.price),
                                rtol=0.04)
@@ -41,7 +30,7 @@ def test_lognormal_limit_matches_bs():
     """nu -> 0, beta = 1 is Black on the forward: surface mean ~= BS."""
     dyn = SABRDynamics(alpha=0.2, beta=1.0, nu=1e-6, rho=0.0)
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_sabr(OPT, dyn, sim, engine="xla")
+    res = price_nmc_sabr(OPT, dyn, sim)
     want = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert float(res.surface_mean) == pytest.approx(want, rel=0.03)
 
@@ -49,7 +38,7 @@ def test_lognormal_limit_matches_bs():
 def test_path_dependent_state_resumes():
     sim = SimParams(n_paths=2048, n_steps=8, n_paths_inner=4)
     res = price_nmc_sabr(OptionParams(p1=1.0, p2=6.0), DEMO_SABR, sim,
-                         payoff="bullet_call", engine="xla")
+                         payoff="bullet_call")
     assert np.all(np.isfinite(np.asarray(res.surface_matrix())))
     assert float(res.outer.stderr) > 0
 

@@ -15,22 +15,13 @@ def _dyn(n):
                                     [0.15, 0.22, 0.30], n)
 
 
-def test_engines_bitwise():
-    sim = SimParams(n_paths=2048, n_steps=4, n_paths_inner=8)
-    a = price_nmc_term(OPT, _dyn(4), sim, engine="pallas", tile_rows=8)
-    b = price_nmc_term(OPT, _dyn(4), sim, engine="xla", tile_rows=8)
-    assert float(a.outer.price) == float(b.outer.price)
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
-
-
 def test_ee_flat_at_term_price():
     """Scalar e^{-r_bar T} discounting makes the conditional call value
     a martingale: EE flat at the time-0 term-structure price."""
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_term(OPT, _dyn(8), sim, engine="xla")
+    res = price_nmc_term(OPT, _dyn(8), sim)
     ref = price_term(OPT, _dyn(8),
-                     SimParams(n_paths=400_000, n_steps=8), engine="xla")
+                     SimParams(n_paths=400_000, n_steps=8))
     ee, pfe = res.exposure_profile()
     np.testing.assert_allclose(np.asarray(ee), float(ref.price),
                                rtol=0.04)
@@ -44,7 +35,7 @@ def test_flat_curves_match_gbm_nmc_stats():
     from mc_tpu.oracle import bs_call
     dyn = TermStructure.from_knots([0.1, 0.1], [0.2, 0.2], 8)
     sim = SimParams(n_paths=8192, n_steps=8, n_paths_inner=32)
-    res = price_nmc_term(OPT, dyn, sim, engine="xla")
+    res = price_nmc_term(OPT, dyn, sim)
     want = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert float(res.surface_mean) == pytest.approx(want, rel=0.03)
 

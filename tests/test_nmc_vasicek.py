@@ -19,8 +19,7 @@ OPT = OptionParams()
 
 
 def test_zcb_exposure_flat_at_closed_form():
-    res = price_nmc_vasicek(OPT, DEMO_VASICEK, SIM, payoff="zcb",
-                            engine="xla")
+    res = price_nmc_vasicek(OPT, DEMO_VASICEK, SIM, payoff="zcb")
     want = vasicek_zcb(0.1, 0.3, 0.05, 0.015, 1.0)
     ee, _ = res.exposure_profile()
     ee = np.asarray(ee)
@@ -32,7 +31,7 @@ def test_zcb_exposure_flat_at_closed_form():
 def test_tower_property_vanilla():
     """Surface mean == outer price == Merton-73 closed form (tower)."""
     sim = SimParams(n_paths=16_384, n_steps=8, n_paths_inner=32)
-    res = price_nmc_vasicek(OPT, DEMO_VASICEK, sim, engine="xla")
+    res = price_nmc_vasicek(OPT, DEMO_VASICEK, sim)
     want = bsv_call(100.0, 100.0, 1.0, 0.1, 0.2, 0.3, 0.05, 0.015, -0.3)
     assert abs(float(res.outer.price) - want) <= 4 * float(res.outer.stderr)
     # surface mean carries inner noise too; gate loosely vs closed form
@@ -43,9 +42,9 @@ def test_rate_vol_fattens_exposure_tail():
     """More rate volatility widens the discounted-value distribution:
     the zcb PFE-EE gap grows with sigma_r."""
     lo = price_nmc_vasicek(OPT, VasicekDynamics(sigma_r=0.002), SIM,
-                           payoff="zcb", engine="xla")
+                           payoff="zcb")
     hi = price_nmc_vasicek(OPT, VasicekDynamics(sigma_r=0.05), SIM,
-                           payoff="zcb", engine="xla")
+                           payoff="zcb")
     def gap(r):
         ee, pfe = r.exposure_profile()
         return float(np.max(np.asarray(pfe) - np.asarray(ee)))
@@ -53,23 +52,11 @@ def test_rate_vol_fattens_exposure_tail():
 
 
 def test_cva_under_stochastic_discounting():
-    res = price_nmc_vasicek(OPT, DEMO_VASICEK, SIM, engine="xla")
+    res = price_nmc_vasicek(OPT, DEMO_VASICEK, SIM)
     cva = float(res.cva(hazard_rate=0.02, recovery=0.4))
     # order of magnitude: (1-R) * lambda * T * E[V+] with V+ ~ price
     assert 0.0 < cva < 0.6 * 0.02 * 1.0 * 25.0
     assert float(res.t_horizon) == 1.0
-
-
-def test_engines_bitwise():
-    sim = SimParams(n_paths=2048, n_steps=4, n_paths_inner=8)
-    a = price_nmc_vasicek(OPT, DEMO_VASICEK, sim, engine="pallas",
-                          tile_rows=8)
-    b = price_nmc_vasicek(OPT, DEMO_VASICEK, sim, engine="xla",
-                          tile_rows=8)
-    assert float(a.outer.price) == float(b.outer.price)
-    assert float(a.outer.stderr) == float(b.outer.stderr)
-    np.testing.assert_array_equal(np.asarray(a.surface),
-                                  np.asarray(b.surface))
 
 
 def test_path_dependent_state_resumes():
@@ -78,7 +65,7 @@ def test_path_dependent_state_resumes():
     discounted (no steps remain)."""
     sim = SimParams(n_paths=2048, n_steps=8, n_paths_inner=4)
     res = price_nmc_vasicek(OptionParams(p1=1.0, p2=6.0), DEMO_VASICEK,
-                            sim, payoff="bullet_call", engine="xla")
+                            sim, payoff="bullet_call")
     assert float(res.outer.stderr) > 0
     sm = res.surface_matrix()
     assert np.all(np.isfinite(np.asarray(sm)))

@@ -29,7 +29,8 @@ def mesh():
 
 @pytest.mark.parametrize("engine", ["xla", "pallas"])
 def test_sharded_within_3se(mesh, engine):
-    res = price_sharded(sim=SIM, mesh=mesh, engine=engine, tile_rows=8)
+    res = price_sharded(sim=SIM, mesh=mesh, engine=engine, tile_rows=8,
+                        interpret=engine == "pallas")
     assert abs(float(res.price) - BS) <= 3.5 * float(res.stderr)
 
 
@@ -43,8 +44,8 @@ def test_sharded_matches_single_chip_draws(mesh):
     """
     # method pinned: sharded pricing rides the classic per-path counter
     # stream (shards need path_offset), so the single-chip side must too.
-    single = price(sim=SIM, engine="xla", tile_rows=8, method="terminal")
-    sharded = price_sharded(sim=SIM, mesh=mesh, engine="xla", tile_rows=8)
+    single = price(sim=SIM, tile_rows=8, method="terminal")
+    sharded = price_sharded(sim=SIM, mesh=mesh, tile_rows=8)
     assert float(sharded.payoff_mean) == pytest.approx(
         float(single.payoff_mean), rel=2e-6)
     assert float(sharded.n_paths) == float(single.n_paths)
@@ -55,20 +56,19 @@ def test_sharded_mesh_size_invariance():
     res = {}
     for n in (1, 4, 8):
         mesh = make_mesh(jax.devices()[:n])
-        r = price_sharded(sim=SIM, mesh=mesh, engine="xla", tile_rows=8)
+        r = price_sharded(sim=SIM, mesh=mesh, tile_rows=8)
         res[n] = float(r.payoff_mean)
     assert res[1] == pytest.approx(res[4], rel=2e-6)
     assert res[4] == pytest.approx(res[8], rel=2e-6)
 
 
 def test_sharded_bullet_and_variance_reduction(mesh):
-    rb = price_sharded(sim=SIM, mesh=mesh, payoff="bullet_call",
-                       engine="xla", tile_rows=8)
+    rb = price_sharded(sim=SIM, mesh=mesh, payoff="bullet_call", tile_rows=8)
     assert 0.0 < float(rb.price) < BS
-    plain = price_sharded(sim=SIM, mesh=mesh, engine="xla", tile_rows=8)
-    anti = price_sharded(sim=SIM, mesh=mesh, engine="xla", tile_rows=8,
+    plain = price_sharded(sim=SIM, mesh=mesh, tile_rows=8)
+    anti = price_sharded(sim=SIM, mesh=mesh, tile_rows=8,
                          antithetic=True)
-    cv = price_sharded(sim=SIM, mesh=mesh, engine="xla", tile_rows=8,
+    cv = price_sharded(sim=SIM, mesh=mesh, tile_rows=8,
                        method="euler", control_variate=True)
     assert float(anti.stderr) < float(plain.stderr)
     assert float(cv.stderr) < float(plain.stderr)
@@ -77,8 +77,8 @@ def test_sharded_bullet_and_variance_reduction(mesh):
 def test_uneven_shard_masking(mesh):
     """n_paths not divisible by (devices * tile) — overhang must be masked."""
     sim = SimParams(n_paths=10_000, n_steps=10)  # 10000 < 8*1024
-    res = price_sharded(sim=sim, mesh=mesh, engine="xla", tile_rows=8)
-    single = price(sim=sim, engine="xla", tile_rows=8, method="terminal")
+    res = price_sharded(sim=sim, mesh=mesh, tile_rows=8)
+    single = price(sim=sim, tile_rows=8, method="terminal")
     assert float(res.payoff_mean) == pytest.approx(
         float(single.payoff_mean), rel=2e-6)
 
@@ -92,8 +92,8 @@ def test_sharded_nmc_matches_single(mesh):
 
     opt = OptionParams(p1=1.0, p2=6.0)
     sim = SimParams(n_paths=2048, n_steps=8, n_paths_inner=16)
-    single = price_nmc(opt, sim, engine="xla")
-    shard = price_nmc_sharded(opt, sim, mesh=mesh, engine="xla")
+    single = price_nmc(opt, sim)
+    shard = price_nmc_sharded(opt, sim, mesh=mesh)
     # each chip padded its local range: global rows >= single rows; compare
     # the valid path range through the matrix views
     a = np.asarray(single.surface_matrix())
@@ -108,7 +108,7 @@ def test_sharded_nmc_pallas_interpret(mesh):
     from mc_tpu import OptionParams
     opt = OptionParams(p1=1.0, p2=6.0)
     sim = SimParams(n_paths=1024, n_steps=4, n_paths_inner=8)
-    res = price_nmc_sharded(opt, sim, mesh=mesh, engine="pallas")
+    res = price_nmc_sharded(opt, sim, mesh=mesh, engine="pallas", interpret=True)
     assert float(res.outer.stderr) > 0
 
 
@@ -120,11 +120,11 @@ def test_sharded_importance_sampling(mesh):
     otm = OptionParams(k=180.0)
     shift = math.log(1.8) / 0.2
     sim = SimParams(n_paths=100_000, n_steps=10)
-    res = price_sharded(otm, sim, mesh=mesh, engine="xla", method="euler",
+    res = price_sharded(otm, sim, mesh=mesh, method="euler",
                         tile_rows=8, importance_shift=shift)
     bs = float(bs_call(100.0, 180.0, 1.0, 0.1, 0.2))
     assert abs(float(res.price) - bs) <= 4.0 * float(res.stderr)
-    single = price(otm, sim, engine="xla", method="euler", tile_rows=8,
+    single = price(otm, sim, method="euler", tile_rows=8,
                    importance_shift=shift)
     assert float(res.payoff_mean) == pytest.approx(
         float(single.payoff_mean), rel=2e-6)
@@ -172,8 +172,7 @@ def test_sharded_book_matches_single_chip(mesh):
     b = price_portfolio_sharded(book, sim, "bullet_call",
                                 mesh=make_mesh(jax.devices()[:1]),
                                 tile_rows=8)
-    c = price_portfolio(book, sim, "bullet_call", engine="pallas",
-                        tile_rows=8)
+    c = price_portfolio(book, sim, "bullet_call", tile_rows=8)
     np.testing.assert_allclose(np.asarray(a.price), np.asarray(b.price),
                                rtol=2e-6)
     np.testing.assert_allclose(np.asarray(a.price), np.asarray(c.price),

@@ -111,8 +111,8 @@ def test_digital_call_vs_closed_form():
     from mc_tpu.oracle import bs_digital_call
     cf = float(bs_digital_call(100.0, 100.0, 1.0, 0.1, 0.2))
     sim = SimParams(n_paths=1 << 20, n_steps=10)
-    a = price(sim=sim, payoff="digital_call", engine="pallas", tile_rows=8)
-    b = price(sim=sim, payoff="digital_call", engine="xla", tile_rows=8)
+    a = price(sim=sim, payoff="digital_call", engine="pallas", interpret=True, tile_rows=8)
+    b = price(sim=sim, payoff="digital_call", tile_rows=8)
     assert float(a.price) == float(b.price)
     assert abs(float(a.price) - cf) <= 4.0 * float(a.stderr), (
         float(a.price), cf)
@@ -150,9 +150,9 @@ def test_digital_put_parity_and_closed_form():
     from mc_tpu.oracle import bs_digital_put
     cf = float(bs_digital_put(100.0, 100.0, 1.0, 0.1, 0.2))
     sim = SimParams(n_paths=1 << 20, n_steps=10)
-    p = price(sim=sim, payoff="digital_put", engine="pallas", tile_rows=8)
-    c = price(sim=sim, payoff="digital_call", engine="pallas", tile_rows=8)
-    x = price(sim=sim, payoff="digital_put", engine="xla", tile_rows=8)
+    p = price(sim=sim, payoff="digital_put", engine="pallas", interpret=True, tile_rows=8)
+    c = price(sim=sim, payoff="digital_call", engine="pallas", interpret=True, tile_rows=8)
+    x = price(sim=sim, payoff="digital_put", tile_rows=8)
     assert float(p.price) == float(x.price)
     assert abs(float(p.price) - cf) <= 4.0 * float(p.stderr), (
         float(p.price), cf)
@@ -171,10 +171,8 @@ def test_best_of_cash_identity():
 
     from mc_tpu import OptionParams, SimParams, price
     opt, sim = OptionParams(), SimParams(n_paths=65536, n_steps=8)
-    boc = price(opt, sim, payoff="best_of_cash", method="terminal",
-                engine="xla")
-    call = price(opt, sim, payoff="vanilla_call", method="terminal",
-                 engine="xla")
+    boc = price(opt, sim, payoff="best_of_cash", method="terminal")
+    call = price(opt, sim, payoff="vanilla_call", method="terminal")
     want = 100.0 * math.exp(-0.1) + float(call.price)
     assert abs(float(boc.price) - want) < 1e-3
 
@@ -189,7 +187,7 @@ def test_best_of_cash_rainbow_nmc():
     from mc_tpu.nmc_rainbow import price_nmc_rainbow
     sim = SimParams(n_paths=4096, n_steps=8, n_paths_inner=16)
     res = price_nmc_rainbow(OptionParams(), sim=sim,
-                            payoff="best_of_cash", engine="xla")
+                            payoff="best_of_cash")
     ee, _ = res.exposure_profile()
     np.testing.assert_allclose(np.asarray(ee), float(res.outer.price),
                                rtol=0.05)

@@ -42,35 +42,13 @@ def test_portfolio_matches_individual():
     single = price(OptionParams(*(float(getattr(b, f)[1]) for f in
                                   ("s0", "t", "k", "r", "sigma", "barrier",
                                    "p1", "p2"))),
-                   SIM, engine="xla", tile_rows=8, method="terminal")
+                   SIM, tile_rows=8, method="terminal")
     assert float(res.price[1]) == float(single.price)
-
-
-def test_portfolio_pallas_map():
-    a = price_portfolio(book(), SIM, engine="pallas", tile_rows=8)
-    b = price_portfolio(book(), SIM, engine="xla", tile_rows=8)
-    np.testing.assert_array_equal(np.asarray(a.price), np.asarray(b.price))
 
 
 def test_portfolio_bullet():
     res = price_portfolio(book(), SIM, payoff="bullet_call", tile_rows=8)
     assert (np.asarray(res.price) >= 0).all()
-
-
-def test_portfolio_pallas_batched_bitwise():
-    """The batched-book kernel (one launch) must match the vmapped XLA
-    dual bit-for-bit, per contract (review item: the fast engine was a
-    sequential lax.map over B kernel launches)."""
-    for kw in (dict(payoff="vanilla_call", method="terminal"),
-               dict(payoff="bullet_call", method="euler"),
-               dict(payoff="bullet_call", method="euler",
-                    antithetic=True)):
-        a = price_portfolio(book(), SIM, engine="pallas", tile_rows=8, **kw)
-        b = price_portfolio(book(), SIM, engine="xla", tile_rows=8, **kw)
-        np.testing.assert_array_equal(np.asarray(a.price),
-                                      np.asarray(b.price), err_msg=str(kw))
-        np.testing.assert_array_equal(np.asarray(a.stderr),
-                                      np.asarray(b.stderr))
 
 
 def test_portfolio_large_book():
@@ -85,9 +63,9 @@ def test_portfolio_large_book():
         sigma=rng_np.uniform(0.1, 0.4, b).astype(np.float32),
     )
     sim = SimParams(n_paths=50_000, n_steps=4)
-    res = price_portfolio(opts, sim, engine="pallas", method="terminal",
+    res = price_portfolio(opts, sim, method="terminal",
                           tile_rows=8)
-    ref = price_portfolio(opts, sim, engine="xla", method="terminal",
+    ref = price_portfolio(opts, sim, method="terminal",
                           tile_rows=8)
     np.testing.assert_array_equal(np.asarray(res.price),
                                   np.asarray(ref.price))
@@ -105,13 +83,12 @@ def test_portfolio_cv_book_bitwise():
     bitwise-equal to the vmapped XLA dual."""
     kw = dict(payoff="vanilla_call", method="euler", control_variate=True,
               tile_rows=8)
-    a = price_portfolio(book(), SIM, engine="pallas", **kw)
-    b = price_portfolio(book(), SIM, engine="xla", **kw)
+    a = price_portfolio(book(), SIM, **kw)
+    b = price_portfolio(book(), SIM, **kw)
     np.testing.assert_array_equal(np.asarray(a.price), np.asarray(b.price))
     np.testing.assert_array_equal(np.asarray(a.stderr),
                                   np.asarray(b.stderr))
     # CV must help on the call book
-    plain = price_portfolio(book(), SIM, engine="pallas",
-                            payoff="vanilla_call", method="euler",
+    plain = price_portfolio(book(), SIM, payoff="vanilla_call", method="euler",
                             tile_rows=8)
     assert np.all(np.asarray(a.stderr) < np.asarray(plain.stderr))

@@ -51,27 +51,17 @@ def test_lattice_points_uniform():
     assert len(np.unique(np.round(u0 * n).astype(int) % n)) == n
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_qmc_unbiased_terminal(engine):
+def test_qmc_unbiased_terminal():
     res = price_qmc(sim=SimParams(n_paths=4099, n_steps=10), n_shifts=8,
-                    engine=engine, tile_rows=8)
+                    tile_rows=8)
     assert abs(float(res.price) - BS) <= 4.0 * float(res.stderr) + 5e-3
-
-
-def test_qmc_engines_bitwise():
-    a = price_qmc(sim=SimParams(n_paths=2053, n_steps=4), n_shifts=4,
-                  engine="pallas", tile_rows=8, method="euler")
-    b = price_qmc(sim=SimParams(n_paths=2053, n_steps=4), n_shifts=4,
-                  engine="xla", tile_rows=8, method="euler")
-    assert float(a.price) == float(b.price)
 
 
 def test_qmc_beats_mc_at_same_budget():
     """16 shifts x 4099 points vs plain MC with the same total paths."""
     n, shifts = 4099, 16
-    qmc = price_qmc(sim=SimParams(n_paths=n, n_steps=10), n_shifts=shifts,
-                    engine="xla", tile_rows=8)
-    mc = price(sim=SimParams(n_paths=n * shifts, n_steps=10), engine="xla",
+    qmc = price_qmc(sim=SimParams(n_paths=n, n_steps=10), n_shifts=shifts, tile_rows=8)
+    mc = price(sim=SimParams(n_paths=n * shifts, n_steps=10),
                method="terminal", tile_rows=8)
     # the lattice rate should cut stderr by well over 2x at this size
     assert float(qmc.stderr) < 0.5 * float(mc.stderr), (
@@ -82,7 +72,7 @@ def test_qmc_beats_mc_at_same_budget():
 def test_qmc_euler_path_dependent():
     res = price_qmc(OptionParams(p1=1.0, p2=8.0),
                     SimParams(n_paths=2053, n_steps=10), payoff="bullet_call",
-                    n_shifts=8, engine="xla", tile_rows=8)
+                    n_shifts=8, tile_rows=8)
     assert 0.0 < float(res.price) < BS
     assert float(res.stderr) > 0.0
 
@@ -111,23 +101,13 @@ def test_bridge_marginals_match_plain():
     estimate must agree with the non-bridge QMC within the error bars."""
     from mc_tpu import SimParams
     sim = SimParams(n_paths=4099, n_steps=16)
-    plain = price_qmc(sim=sim, method="euler", n_shifts=8, engine="xla",
+    plain = price_qmc(sim=sim, method="euler", n_shifts=8,
                       tile_rows=8)
-    bridged = price_qmc(sim=sim, method="euler", n_shifts=8, engine="xla",
+    bridged = price_qmc(sim=sim, method="euler", n_shifts=8,
                         tile_rows=8, bridge=True)
     tol = 5.0 * (float(plain.stderr) + float(bridged.stderr)) + 1e-3
     assert abs(float(plain.price) - float(bridged.price)) <= tol
     assert abs(float(bridged.price) - BS) <= 5.0 * float(bridged.stderr) + 5e-3
-
-
-def test_bridge_engines_bitwise():
-    from mc_tpu import SimParams
-    sim = SimParams(n_paths=2053, n_steps=8)
-    a = price_qmc(sim=sim, method="euler", n_shifts=4, engine="pallas",
-                  tile_rows=8, bridge=True)
-    b = price_qmc(sim=sim, method="euler", n_shifts=4, engine="xla",
-                  tile_rows=8, bridge=True)
-    assert float(a.price) == float(b.price)
 
 
 def test_bridge_improves_asian():
@@ -135,10 +115,8 @@ def test_bridge_improves_asian():
     stderr further by mapping leading dimensions to coarse levels."""
     from mc_tpu import SimParams
     sim = SimParams(n_paths=16381, n_steps=32)
-    plain = price_qmc(sim=sim, payoff="asian_call", n_shifts=12,
-                      engine="xla", tile_rows=8)
-    bridged = price_qmc(sim=sim, payoff="asian_call", n_shifts=12,
-                        engine="xla", tile_rows=8, bridge=True)
+    plain = price_qmc(sim=sim, payoff="asian_call", n_shifts=12, tile_rows=8)
+    bridged = price_qmc(sim=sim, payoff="asian_call", n_shifts=12, tile_rows=8, bridge=True)
     assert float(bridged.stderr) < float(plain.stderr)
 
 
@@ -148,11 +126,11 @@ def test_bridge_guard():
 
 
 def test_bridge_vmem_cap_on_default_tile_rows():
-    """Regression (advisor): bridge=True at the default tile_rows=256 and
-    n_steps=100 allocated a ~13 MB VMEM scratch (over Mosaic's budget on
-    real chips); tile_rows now auto-shrinks so the scratch stays ~4 MB."""
+    """bridge=True at the default tile_rows and n_steps=100 would hold a
+    ~13 MB per-tile bridge buffer; tile_rows auto-shrinks so it stays
+    ~4 MB."""
     sim = SimParams(n_paths=1 << 14, n_steps=100)
-    r = price_qmc(sim=sim, method="euler", n_shifts=2, engine="pallas",
+    r = price_qmc(sim=sim, method="euler", n_shifts=2,
                   bridge=True)  # default tile_rows -> capped at 80
     assert np.isfinite(float(r.price)) and float(r.stderr) > 0
 
@@ -180,26 +158,17 @@ def test_sobol_directions_match_scipy_points():
     np.testing.assert_allclose(ours, pts, atol=1e-12)
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
-def test_sobol_unbiased_terminal(engine):
+def test_sobol_unbiased_terminal():
     res = price_qmc(sim=SimParams(n_paths=4096, n_steps=10), n_shifts=8,
-                    family="sobol", engine=engine, tile_rows=8)
+                    family="sobol", tile_rows=8)
     assert abs(float(res.price) - BS) <= 4.0 * float(res.stderr) + 5e-3
-
-
-def test_sobol_engines_bitwise():
-    kw = dict(sim=SimParams(n_paths=2048, n_steps=4), n_shifts=4,
-              family="sobol", tile_rows=8, method="euler")
-    a = price_qmc(engine="pallas", **kw)
-    b = price_qmc(engine="xla", **kw)
-    assert float(a.price) == float(b.price)
 
 
 def test_sobol_beats_mc_at_same_budget():
     n, shifts = 4096, 16
     s = price_qmc(sim=SimParams(n_paths=n, n_steps=10), n_shifts=shifts,
-                  family="sobol", engine="xla", tile_rows=8)
-    mc = price(sim=SimParams(n_paths=n * shifts, n_steps=10), engine="xla",
+                  family="sobol", tile_rows=8)
+    mc = price(sim=SimParams(n_paths=n * shifts, n_steps=10),
                method="terminal", tile_rows=8)
     assert float(s.stderr) < 0.5 * float(mc.stderr), (
         float(s.stderr), float(mc.stderr))
@@ -207,38 +176,17 @@ def test_sobol_beats_mc_at_same_budget():
 
 
 def test_sobol_bridge_asian():
-    """Sobol + Brownian bridge on the Asian call: valid price, and the
-    canonical digital-net/bridge combination runs through both engines."""
+    """Sobol + Brownian bridge on the Asian call: a valid price from the
+    canonical digital-net/bridge combination."""
     sim = SimParams(n_paths=8192, n_steps=16)
     a = price_qmc(sim=sim, payoff="asian_call", n_shifts=8, family="sobol",
-                  engine="pallas", tile_rows=8, bridge=True)
-    b = price_qmc(sim=sim, payoff="asian_call", n_shifts=8, family="sobol",
-                  engine="xla", tile_rows=8, bridge=True)
-    assert float(a.price) == float(b.price)
+                  tile_rows=8, bridge=True)
     assert 0.0 < float(a.price) < BS and float(a.stderr) > 0
 
 
 def test_sobol_family_guard():
     with pytest.raises(ValueError, match="family"):
         price_qmc(family="halton")
-
-
-def test_qmc_engine_typo_rejected():
-    """Regression (review): a typo'd engine silently priced on the XLA
-    path; both QMC APIs must raise like price() does."""
-    with pytest.raises(ValueError, match="engine"):
-        price_qmc(engine="palas")
-    from mc_tpu.parallel import price_qmc_sharded
-    with pytest.raises(ValueError, match="engine"):
-        price_qmc_sharded(engine="palas")
-
-
-def test_bridge_rejects_oversized_step_count():
-    """Regression (review): past ~1000 steps not even 8 rows of the
-    bridge scratch fit the VMEM budget — fail loudly, don't blow VMEM."""
-    with pytest.raises(ValueError, match="budget"):
-        price_qmc(sim=SimParams(n_paths=4096, n_steps=2000),
-                  method="euler", bridge=True)
 
 
 # --- QMC over model families (round 3) -------------------------------------
@@ -250,11 +198,10 @@ def test_qmc_heston_matches_cf():
                                       price_heston)
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 14, n_steps=16)
-    q = price_qmc_model("heston", sim=sim, n_shifts=8, engine="xla")
+    q = price_qmc_model("heston", sim=sim, n_shifts=8)
     cf = heston_call_cf(100.0, 100.0, 1.0, 0.1, *DEMO_HESTON.astuple())
     assert abs(float(q.price) - cf) <= 3.5 * float(q.stderr)
-    mc = price_heston(sim=SimParams(n_paths=8 * (1 << 14), n_steps=16),
-                      engine="xla")
+    mc = price_heston(sim=SimParams(n_paths=8 * (1 << 14), n_steps=16))
     assert float(q.stderr) < 0.55 * float(mc.stderr)  # measured ~3x
 
 
@@ -264,24 +211,11 @@ def test_qmc_basket_matches_mc():
     from mc_tpu.models.basket import price_basket
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 14, n_steps=16)
-    q = price_qmc_model("basket", sim=sim, n_shifts=8, engine="xla")
-    mc = price_basket(sim=SimParams(n_paths=8 * (1 << 14), n_steps=16),
-                      engine="xla")
+    q = price_qmc_model("basket", sim=sim, n_shifts=8)
+    mc = price_basket(sim=SimParams(n_paths=8 * (1 << 14), n_steps=16))
     joint = (float(q.stderr) ** 2 + float(mc.stderr) ** 2) ** 0.5
     assert abs(float(q.price) - float(mc.price)) <= 3.5 * joint
     assert float(q.stderr) < 0.4 * float(mc.stderr)
-
-
-def test_qmc_model_engines_bitwise():
-    from mc_tpu.qmc import price_qmc_model
-    sim = SimParams(n_paths=1 << 12, n_steps=8)
-    for model in ("heston", "basket"):
-        a = price_qmc_model(model, sim=sim, n_shifts=4, engine="pallas",
-                            tile_rows=8)
-        b = price_qmc_model(model, sim=sim, n_shifts=4, engine="xla",
-                            tile_rows=8)
-        assert float(a.price) == float(b.price), model
-        assert float(a.stderr) == float(b.stderr), model
 
 
 def test_qmc_model_path_dependent_payoff():
@@ -289,7 +223,7 @@ def test_qmc_model_path_dependent_payoff():
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 13, n_steps=16)
     r = price_qmc_model("heston", sim=sim, payoff="asian_call",
-                        n_shifts=8, engine="xla")
+                        n_shifts=8)
     assert 0.0 < float(r.price) < 15.0
     assert float(r.stderr) > 0.0
 
@@ -320,28 +254,17 @@ def test_qmc_cev_and_sabr_match_mc():
     big = SimParams(n_paths=8 * (1 << 14), n_steps=16)
     from mc_tpu.models.localvol import LocalVolSurface, price_localvol
 
-    def lv(sim, engine):
+    def lv(sim):
         return price_localvol(surf=LocalVolSurface.demo(sim.n_steps),
-                              sim=sim, engine=engine)
+                              sim=sim)
 
     for model, mc_fn in (("cev", price_cev), ("sabr", price_sabr),
                          ("localvol", lv)):
-        q = price_qmc_model(model, sim=sim, n_shifts=8, engine="xla")
-        mc = mc_fn(sim=big, engine="xla")
+        q = price_qmc_model(model, sim=sim, n_shifts=8)
+        mc = mc_fn(sim=big)
         joint = (float(q.stderr) ** 2 + float(mc.stderr) ** 2) ** 0.5
         assert abs(float(q.price) - float(mc.price)) <= 3.5 * joint, model
         assert float(q.stderr) < 0.6 * float(mc.stderr), model
-
-
-def test_qmc_cev_engines_bitwise():
-    from mc_tpu.qmc import price_qmc_model
-    sim = SimParams(n_paths=1 << 12, n_steps=8)
-    for model in ("cev", "sabr", "localvol"):
-        a = price_qmc_model(model, sim=sim, n_shifts=4, engine="pallas",
-                            tile_rows=8)
-        b = price_qmc_model(model, sim=sim, n_shifts=4, engine="xla",
-                            tile_rows=8)
-        assert float(a.price) == float(b.price), model
 
 
 def test_qmc_model_sharded_bitwise_mesh_invariant():
@@ -353,13 +276,13 @@ def test_qmc_model_sharded_bitwise_mesh_invariant():
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 13, n_steps=8)
     single = price_qmc_model("heston", sim=sim, n_shifts=8,
-                             engine="pallas", tile_rows=8)
+                             tile_rows=8)
     m1 = price_qmc_model_sharded("heston", sim=sim, n_shifts=8,
                                  mesh=make_mesh(jax.devices()[:1]),
-                                 engine="pallas", tile_rows=8)
+                                 tile_rows=8)
     m8 = price_qmc_model_sharded("heston", sim=sim, n_shifts=8,
                                  mesh=make_mesh(jax.devices()[:8]),
-                                 engine="pallas", tile_rows=8)
+                                 tile_rows=8)
     assert float(m1.price) == float(single.price)
     assert float(m1.stderr) == float(single.stderr)
     assert float(m8.price) == float(m1.price)
@@ -376,8 +299,7 @@ def test_qmc_vasicek_zcb_exact():
     from mc_tpu.oracle import vasicek_zcb
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 13, n_steps=16)
-    q = price_qmc_model("vasicek", sim=sim, payoff="zcb", n_shifts=8,
-                        engine="xla")
+    q = price_qmc_model("vasicek", sim=sim, payoff="zcb", n_shifts=8)
     d = DEMO_VASICEK
     want = float(vasicek_zcb(0.1, float(d.a), float(d.b),
                              float(d.sigma_r), 1.0))
@@ -388,9 +310,8 @@ def test_qmc_vasicek_matches_mc():
     from mc_tpu.models.vasicek import price_vasicek
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 14, n_steps=16)
-    q = price_qmc_model("vasicek", sim=sim, n_shifts=8, engine="xla")
-    mc = price_vasicek(sim=SimParams(n_paths=8 * (1 << 14), n_steps=16),
-                       engine="xla")
+    q = price_qmc_model("vasicek", sim=sim, n_shifts=8)
+    mc = price_vasicek(sim=SimParams(n_paths=8 * (1 << 14), n_steps=16))
     joint = (float(q.stderr) ** 2 + float(mc.stderr) ** 2) ** 0.5
     assert abs(float(q.price) - float(mc.price)) <= 3.5 * joint
     assert float(q.stderr) < 0.7 * float(mc.stderr)
@@ -405,14 +326,13 @@ def test_qmc_bates_matches_cf_oracle():
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 14, n_steps=16)
     d = DEMO_BATES
-    q = price_qmc_model("bates", sim=sim, n_shifts=8, engine="xla")
+    q = price_qmc_model("bates", sim=sim, n_shifts=8)
     ref = float(bates_call_cf(100.0, 100.0, 1.0, 0.1, d.v0, d.kappa,
                               d.theta, d.xi, d.rho, d.lam, d.mu_j,
                               d.sigma_j))
     # Euler diffusion bias at 16 steps + QMC stderr
     assert abs(float(q.price) - ref) <= 4.0 * float(q.stderr) + 0.02 * ref
-    mc = price_bates(sim=SimParams(n_paths=1 << 17, n_steps=16),
-                     engine="xla")
+    mc = price_bates(sim=SimParams(n_paths=1 << 17, n_steps=16))
     # equal-budget comparison: per-point efficiency must beat MC
     se_mc_at_qmc_budget = float(mc.stderr) * (
         (1 << 17) / (sim.n_paths * 8)) ** 0.5
@@ -427,7 +347,7 @@ def test_qmc_merton_matches_series_oracle():
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 14, n_steps=16)
     d = DEMO_MERTON
-    q = price_qmc_model("merton", sim=sim, n_shifts=8, engine="xla")
+    q = price_qmc_model("merton", sim=sim, n_shifts=8)
     want = float(merton_call_closed_form(100.0, 100.0, 1.0, 0.1, 0.2,
                                          d.lam, d.mu_j, d.sigma_j))
     assert abs(float(q.price) - want) <= 3.5 * float(q.stderr) + 2e-3
@@ -440,26 +360,12 @@ def test_qmc_term_matches_exact():
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 14, n_steps=16)
     term = TermStructure.from_knots([0.10, 0.05], [0.15, 0.30], 16)
-    q = price_qmc_model("term", dyn=term, sim=sim, n_shifts=8,
-                        engine="xla")
+    q = price_qmc_model("term", dyn=term, sim=sim, n_shifts=8)
     mc = price_term(term=term,
-                    sim=SimParams(n_paths=8 * (1 << 14), n_steps=16),
-                    engine="xla")
+                    sim=SimParams(n_paths=8 * (1 << 14), n_steps=16))
     joint = (float(q.stderr) ** 2 + float(mc.stderr) ** 2) ** 0.5
     assert abs(float(q.price) - float(mc.price)) <= 3.5 * joint
     assert float(q.stderr) < 0.7 * float(mc.stderr)
-
-
-def test_qmc_new_model_engines_bitwise():
-    sim = SimParams(n_paths=1 << 12, n_steps=8)
-    from mc_tpu.qmc import price_qmc_model
-    for model in ("vasicek", "merton", "term", "bates"):
-        a = price_qmc_model(model, sim=sim, n_shifts=4, engine="pallas",
-                            tile_rows=8)
-        b = price_qmc_model(model, sim=sim, n_shifts=4, engine="xla",
-                            tile_rows=8)
-        assert float(a.price) == float(b.price), model
-        assert float(a.stderr) == float(b.stderr), model
 
 
 def test_qmc_new_models_sharded_bitwise():
@@ -469,9 +375,7 @@ def test_qmc_new_models_sharded_bitwise():
     from mc_tpu.qmc import price_qmc_model
     sim = SimParams(n_paths=1 << 12, n_steps=8)
     for model in ("vasicek", "merton", "term", "bates"):
-        single = price_qmc_model(model, sim=sim, n_shifts=4,
-                                 engine="xla", tile_rows=8)
-        m2 = price_qmc_model_sharded(model, sim=sim, n_shifts=4,
-                                     engine="xla", tile_rows=8,
+        single = price_qmc_model(model, sim=sim, n_shifts=4, tile_rows=8)
+        m2 = price_qmc_model_sharded(model, sim=sim, n_shifts=4, tile_rows=8,
                                      mesh=make_mesh(jax.devices()[:2]))
         assert float(m2.price) == float(single.price), model

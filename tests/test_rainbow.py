@@ -81,8 +81,7 @@ def _gate(res, want, n_se=3.5):
 
 
 def test_exchange_margrabe_gate():
-    res = price_rainbow(OptionParams(), two_asset(), SIM, "exchange",
-                        engine="xla", antithetic=True, tile_rows=8)
+    res = price_rainbow(OptionParams(), two_asset(), SIM, "exchange", antithetic=True, tile_rows=8)
     _gate(res, margrabe(S1, S2, 1.0, SIG1, SIG2, RHO))
 
 
@@ -91,7 +90,7 @@ def test_exchange_margrabe_gate():
     ("put_on_min", stulz_min_put), ("put_on_max", stulz_max_put)])
 def test_stulz_gates(payoff, oracle):
     opt = OptionParams(k=98.0)
-    res = price_rainbow(opt, two_asset(), SIM, payoff, engine="xla",
+    res = price_rainbow(opt, two_asset(), SIM, payoff,
                         antithetic=True, tile_rows=8)
     _gate(res, oracle(S1, S2, 98.0, 1.0, 0.1, SIG1, SIG2, RHO))
 
@@ -99,8 +98,7 @@ def test_stulz_gates(payoff, oracle):
 def test_negative_correlation_gate():
     """rho < 0 splits min and max hard; also exercises chol off-diag < 0."""
     opt = OptionParams(k=100.0)
-    res = price_rainbow(opt, two_asset(rho=-0.6), SIM, "call_on_max",
-                        engine="xla", antithetic=True, tile_rows=8)
+    res = price_rainbow(opt, two_asset(rho=-0.6), SIM, "call_on_max", antithetic=True, tile_rows=8)
     _gate(res, stulz_max_call(S1, S2, 100.0, 1.0, 0.1, SIG1, SIG2, -0.6))
 
 
@@ -109,7 +107,7 @@ def test_min_max_multiset_identity():
     MC estimates on the SAME key agree to rounding — and the closed
     forms satisfy the same identity exactly."""
     opt = OptionParams(k=98.0)
-    kw = dict(sim=SIM, engine="xla", tile_rows=8)
+    kw = dict(sim=SIM, tile_rows=8)
     tot_mc = (float(price_rainbow(opt, two_asset(), payoff="call_on_max",
                                   **kw).price)
               + float(price_rainbow(opt, two_asset(), payoff="call_on_min",
@@ -129,7 +127,7 @@ def test_best_of_cash_identity():
     """max(M, K) = max(M-K, 0) + K pathwise: same-key MC estimates differ
     by exactly the discounted cash leg (up to f32 rounding)."""
     opt = OptionParams(k=110.0)
-    kw = dict(sim=SimParams(n_paths=50_000, n_steps=1), engine="xla",
+    kw = dict(sim=SimParams(n_paths=50_000, n_steps=1),
               tile_rows=8)
     boc = float(price_rainbow(opt, two_asset(), payoff="best_of_cash",
                               **kw).price)
@@ -144,8 +142,7 @@ def test_single_asset_reduces_to_bs():
                          sigmas=np.array([0.2], np.float32),
                          weights=np.array([1.0], np.float32),
                          corr=np.eye(1, dtype=np.float32))
-    res = price_rainbow(OptionParams(), one, SIM, "call_on_max",
-                        engine="xla", antithetic=True, tile_rows=8)
+    res = price_rainbow(OptionParams(), one, SIM, "call_on_max", antithetic=True, tile_rows=8)
     _gate(res, float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2)))
 
 
@@ -157,23 +154,12 @@ def test_more_assets_raise_max_call():
                               sigmas=np.full(d, 0.2, np.float32),
                               weights=np.full(d, 1.0 / d, np.float32),
                               corr=np.eye(d, dtype=np.float32))
-    kw = dict(sim=SIM, engine="xla", antithetic=True, tile_rows=8)
+    kw = dict(sim=SIM, antithetic=True, tile_rows=8)
     p2 = float(price_rainbow(OptionParams(), iid(2),
                              payoff="call_on_max", **kw).price)
     p4 = float(price_rainbow(OptionParams(), iid(4),
                              payoff="call_on_max", **kw).price)
     assert p4 > p2 + 1.0
-
-
-def test_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=1)
-    for payoff in ("call_on_max", "exchange", "put_on_min"):
-        a = price_rainbow(OptionParams(k=98.0), two_asset(), sim, payoff,
-                          engine="pallas", tile_rows=8)
-        b = price_rainbow(OptionParams(k=98.0), two_asset(), sim, payoff,
-                          engine="xla", tile_rows=8)
-        assert float(a.price) == float(b.price), payoff
-        assert float(a.stderr) == float(b.stderr), payoff
 
 
 def test_validation():
@@ -188,7 +174,7 @@ def test_validation():
 
 
 def test_antithetic_reduces_stderr():
-    kw = dict(sim=SIM, engine="xla", tile_rows=8)
+    kw = dict(sim=SIM, tile_rows=8)
     plain = price_rainbow(OptionParams(), two_asset(),
                           payoff="call_on_max", **kw)
     anti = price_rainbow(OptionParams(), two_asset(),

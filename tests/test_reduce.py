@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mc_tpu.ops.reduce import (kahan_sum, pad_to_tiles, sum_pallas,
-                               sum_sumsq_pallas, tile_partials)
+from mc_tpu.ops.reduce import (kahan_sum, pad_to_tiles, tile_sum,
+                               tile_sum_sumsq, tile_partials)
 
 
 @pytest.fixture(scope="module")
@@ -27,9 +27,10 @@ def test_pad_to_tiles_shapes():
 @pytest.mark.parametrize("n", [1, 127, 1024, 100_000])
 @pytest.mark.parametrize("tile_rows", [8, 64])
 def test_sum_pallas_matches_numpy(n, tile_rows):
+    """`tile_sum`, the plain-jnp form of the former Pallas reduce."""
     rs = np.random.RandomState(n)
     x = rs.standard_normal(n).astype(np.float32)
-    got = float(sum_pallas(jnp.asarray(x), tile_rows=tile_rows))
+    got = float(tile_sum(jnp.asarray(x), tile_rows=tile_rows))
     want = float(np.sum(x.astype(np.float64)))
     assert got == pytest.approx(want, abs=1e-2, rel=1e-6)
 
@@ -43,7 +44,7 @@ def test_tile_partials_sum(random_array):
 
 
 def test_sum_sumsq(random_array):
-    s, s2 = sum_sumsq_pallas(jnp.asarray(random_array), tile_rows=64)
+    s, s2 = tile_sum_sumsq(jnp.asarray(random_array), tile_rows=64)
     want_s = random_array.astype(np.float64).sum()
     want_s2 = (random_array.astype(np.float64) ** 2).sum()
     assert float(s) == pytest.approx(want_s, abs=1e-2)
@@ -63,6 +64,6 @@ def test_kahan_accumulation_beats_naive_f32():
     # Large constant array: naive sequential f32 summation drifts, Kahan not.
     n = 4_000_000
     x = np.full(n, 0.123456789, dtype=np.float32)
-    got = float(sum_pallas(jnp.asarray(x), tile_rows=256))
+    got = float(tile_sum(jnp.asarray(x), tile_rows=256))
     want = float(x.astype(np.float64).sum())
     assert got == pytest.approx(want, rel=1e-6)

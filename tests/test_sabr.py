@@ -38,7 +38,7 @@ def test_mc_lognormal_limit_matches_bs():
     """beta=1, nu tiny: the MC scheme is exact lognormal stepping — price
     must hit BS within pure MC noise (no discretization bias)."""
     dyn = SABRDynamics(alpha=0.2, beta=1.0, nu=1e-6, rho=0.0)
-    res = price_sabr(OPT, dyn, SIM, engine="xla", antithetic=True,
+    res = price_sabr(OPT, dyn, SIM, antithetic=True,
                      tile_rows=64)
     bs = float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2))
     assert abs(float(res.price) - bs) <= 4.0 * float(res.stderr), (
@@ -50,7 +50,7 @@ def test_mc_matches_hagan_within_expansion_error():
     O(T) accuracy of the expansion (~1% here)."""
     ref = sabr_call_hagan(100.0, 100.0, 1.0, 0.1, alpha=0.2, beta=1.0,
                           nu=0.4, rho=-0.4)
-    res = price_sabr(OPT, DEMO_SABR, SIM, engine="xla", antithetic=True,
+    res = price_sabr(OPT, DEMO_SABR, SIM, antithetic=True,
                      tile_rows=64)
     tol = 4.0 * float(res.stderr) + 0.01 * ref
     assert abs(float(res.price) - ref) <= tol, (
@@ -64,7 +64,7 @@ def test_mc_smile_slope_matches_hagan():
     ivs_mc, ivs_hagan = [], []
     for k in strikes:
         opt = OptionParams(k=k)
-        res = price_sabr(opt, DEMO_SABR, SIM, engine="xla",
+        res = price_sabr(opt, DEMO_SABR, SIM,
                          antithetic=True, tile_rows=64)
         ivs_mc.append(float(bs_implied_vol(res.price, 100.0, k, 1.0, 0.1)))
         f = 100.0 * math.exp(0.1)
@@ -84,19 +84,10 @@ def test_beta_backbone():
     assert lo > hi
 
 
-def test_pallas_xla_bitwise():
-    sim = SimParams(n_paths=16_384, n_steps=10)
-    a = price_sabr(OPT, DEMO_SABR, sim, engine="pallas", tile_rows=8)
-    b = price_sabr(OPT, DEMO_SABR, sim, engine="xla", tile_rows=8)
-    assert float(a.price) == float(b.price)
-    assert float(a.stderr) == float(b.stderr)
-
-
 def test_path_payoff_on_forward():
     """Asian on the forward path: positive, below the vanilla."""
-    asian = price_sabr(OPT, DEMO_SABR, SIM, payoff="asian_call",
-                       engine="xla", tile_rows=64)
-    vanilla = price_sabr(OPT, DEMO_SABR, SIM, engine="xla", tile_rows=64)
+    asian = price_sabr(OPT, DEMO_SABR, SIM, payoff="asian_call", tile_rows=64)
+    vanilla = price_sabr(OPT, DEMO_SABR, SIM, tile_rows=64)
     assert 0.0 < float(asian.price)
     # forward path drifts from S0 e^{(r-q)T}: the running mean sits ABOVE
     # the spot-path mean, but still below the terminal-payoff call value

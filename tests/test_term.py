@@ -29,8 +29,7 @@ def _term(rates, sigmas, n=20):
 
 
 def test_flat_curves_match_bs():
-    res = price_term(OptionParams(), _term([0.1], [0.2]), SIM,
-                     engine="xla", antithetic=True, tile_rows=8)
+    res = price_term(OptionParams(), _term([0.1], [0.2]), SIM, antithetic=True, tile_rows=8)
     _gate(res, float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2)))
 
 
@@ -38,7 +37,7 @@ def test_varying_curves_match_averaged_bs():
     """Steep curves: the gate is BS at (mean r, rms sigma) — exact in
     law, not an approximation."""
     term = _term([0.12, 0.08, 0.04, 0.02], [0.1, 0.2, 0.3, 0.4])
-    res = price_term(OptionParams(), term, SIM, engine="xla",
+    res = price_term(OptionParams(), term, SIM,
                      antithetic=True, tile_rows=8)
     rs = np.asarray(term.rates, np.float64)
     sg = np.asarray(term.sigmas, np.float64)
@@ -55,7 +54,7 @@ def test_forward_start_sees_only_late_vol():
     quiet = _term([0.10, late_r], [0.10, late_sg])
     wild = _term([0.25, late_r], [0.60, late_sg])
     opt = OptionParams(k=1.0, p1=10.0)
-    kw = dict(sim=SIM, payoff="forward_start_call", engine="xla",
+    kw = dict(sim=SIM, payoff="forward_start_call",
               antithetic=True, tile_rows=8)
     want = bs_forward_start_call(100.0, 1.0, 0.5, 1.0, late_r, late_sg)
     a = price_term(opt, quiet, **kw)
@@ -72,21 +71,12 @@ def test_asian_really_sees_the_curve():
     back = _term([0.1], [0.1, 0.4])          # rms = 0.2915
     rms = float(np.sqrt(np.mean(np.asarray(back.sigmas) ** 2)))
     flat = _term([0.1], [rms])
-    kw = dict(sim=SIM, payoff="asian_call", engine="xla",
+    kw = dict(sim=SIM, payoff="asian_call",
               antithetic=True, tile_rows=8)
     a = price_term(OptionParams(), back, **kw)
     b = price_term(OptionParams(), flat, **kw)
     se = math.hypot(float(a.stderr), float(b.stderr))
     assert float(a.price) < float(b.price) - 3 * se
-
-
-def test_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=20)
-    term = _term([0.10, 0.07, 0.05], [0.15, 0.22, 0.30])
-    a = price_term(OptionParams(), term, sim, engine="pallas", tile_rows=8)
-    b = price_term(OptionParams(), term, sim, engine="xla", tile_rows=8)
-    assert float(a.price) == float(b.price)
-    assert float(a.stderr) == float(b.stderr)
 
 
 def test_from_knots_spread():

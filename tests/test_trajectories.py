@@ -61,7 +61,7 @@ def test_payoff_partials_match_grid(traj):
 
 
 def test_resume_from_trajectory_state():
-    """Kernels accept (S_k, state_k) resume arrays — the TPU form of the
+    """Kernels accept (S_k, state_k) resume arrays — the kernel form of the
     reference's (Ik, Sk, Tk) arguments (trajectories.cuh:116-117)."""
     from mc_tpu.ops import path_kernels as pk
     from mc_tpu.ops.payoffs import get_payoff
@@ -77,7 +77,8 @@ def test_resume_from_trajectory_state():
     # Full run 0..8
     cfg_full = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                                tile_rows=8)
-    full = pk.simulate_partials(payoff, cfg_full, key, params)
+    full = pk.simulate_partials(payoff, cfg_full, key, params,
+                                interpret=True)
 
     # Two-phase: materialize to step 4, resume 4..8 from the stored state.
     half = SimParams(n_paths=1024, n_steps=8)
@@ -87,6 +88,7 @@ def test_resume_from_trajectory_state():
     cfg_resume = pk.KernelConfig(n_paths=sim.n_paths, n_steps=sim.n_steps,
                                  tile_rows=8, start_step=4)
     resumed = pk.simulate_partials(payoff, cfg_resume, key, params,
-                                   s_init=s4, state_init=(c4,))
+                                   s_init=s4, state_init=(c4,),
+                                   interpret=True)
     assert float(finish_sum(full[0])) == pytest.approx(
         float(finish_sum(resumed[0])), rel=1e-6)

@@ -16,8 +16,7 @@ def test_gbm_fair_variance_is_sigma_squared():
     exact discrete-sampling drift term mu^2 dt (E[(mu dt + sig sqrt(dt)
     z)^2] summed and annualized) — resolvable at this stderr (~1e-5)."""
     opt = OptionParams(k=KVAR)
-    res = price(opt, SIM, payoff="variance_swap", method="euler",
-                engine="xla", tile_rows=64)
+    res = price(opt, SIM, payoff="variance_swap", method="euler", tile_rows=64)
     mu = 0.1 - 0.5 * 0.2 ** 2
     dt = 1.0 / SIM.n_steps
     want = math.exp(-0.1) * (0.2 ** 2 + mu * mu * dt - KVAR)
@@ -27,8 +26,7 @@ def test_gbm_fair_variance_is_sigma_squared():
 
 def test_zero_strike_gives_discounted_expected_rv():
     opt = OptionParams(k=0.0)
-    res = price(opt, SIM, payoff="variance_swap", method="euler",
-                engine="xla", tile_rows=64)
+    res = price(opt, SIM, payoff="variance_swap", method="euler", tile_rows=64)
     mu = 0.1 - 0.5 * 0.2 ** 2
     want = math.exp(-0.1) * (0.04 + mu * mu / SIM.n_steps)
     assert float(res.price) == pytest.approx(want,
@@ -39,8 +37,7 @@ def test_heston_fair_variance():
     """E[(1/T) int v dt] = theta + (v0 - theta)(1 - e^{-kT})/(kT)."""
     from mc_tpu.models.heston import DEMO_HESTON, price_heston
     opt = OptionParams(k=0.0)
-    res = price_heston(opt, DEMO_HESTON, SIM, payoff="variance_swap",
-                       engine="xla", tile_rows=64)
+    res = price_heston(opt, DEMO_HESTON, SIM, payoff="variance_swap", tile_rows=64)
     v0, kap, th = (float(DEMO_HESTON.v0), float(DEMO_HESTON.kappa),
                    float(DEMO_HESTON.theta))
     fair = th + (v0 - th) * (1.0 - math.exp(-kap)) / kap
@@ -57,7 +54,7 @@ def test_merton_jumps_add_quadratic_variation():
     from mc_tpu.models.merton import DEMO_MERTON, price_merton
     opt = OptionParams(k=0.0)
     res = price_merton(opt, DEMO_MERTON, SIM, payoff="variance_swap",
-                       method="euler", engine="xla", tile_rows=64)
+                       method="euler", tile_rows=64)
     lam, mu_j, sig_j = 0.3, -0.10, 0.15
     want = math.exp(-0.1) * (0.2 ** 2 + lam * (mu_j ** 2 + sig_j ** 2))
     # O(dt) discrete-sampling terms (drift^2 dt, cross terms) ~ 5e-5
@@ -69,9 +66,8 @@ def test_pallas_xla_bitwise():
     opt = OptionParams(k=KVAR)
     sim = SimParams(n_paths=16_384, n_steps=10)
     a = price(opt, sim, payoff="variance_swap", method="euler",
-              engine="pallas", tile_rows=8)
-    b = price(opt, sim, payoff="variance_swap", method="euler",
-              engine="xla", tile_rows=8)
+              engine="pallas", interpret=True, tile_rows=8)
+    b = price(opt, sim, payoff="variance_swap", method="euler", tile_rows=8)
     assert float(a.price) == float(b.price)
     assert float(a.stderr) == float(b.stderr)
 

@@ -30,7 +30,7 @@ def test_zcb_exact_at_any_step_count(n_steps):
     """E[exp(-int r)] vs the affine closed form — the discount factor's
     stderr is ~1e-5, so this pins the OU covariance construction hard."""
     sim = SimParams(n_paths=200_000, n_steps=n_steps)
-    res = price_vasicek(OPT, DEMO_VASICEK, sim, payoff="zcb", engine="xla",
+    res = price_vasicek(OPT, DEMO_VASICEK, sim, payoff="zcb",
                         tile_rows=8)
     _gate(res, vasicek_zcb(0.1, 0.3, 0.05, 0.015, 1.0))
 
@@ -39,7 +39,7 @@ def test_zcb_high_vol_gate():
     """Stronger rate vol + fast reversion exercises the OU kernels away
     from the near-deterministic regime."""
     dyn = VasicekDynamics(a=1.0, b=0.03, sigma_r=0.05, rho=0.0)
-    res = price_vasicek(OPT, dyn, SIM, payoff="zcb", engine="xla",
+    res = price_vasicek(OPT, dyn, SIM, payoff="zcb",
                         tile_rows=8)
     _gate(res, vasicek_zcb(0.1, 1.0, 0.03, 0.05, 1.0))
 
@@ -47,7 +47,7 @@ def test_zcb_high_vol_gate():
 @pytest.mark.parametrize("rho", [-0.3, 0.5])
 def test_equity_call_merton73_gate(rho):
     dyn = VasicekDynamics(rho=rho)
-    res = price_vasicek(OPT, dyn, SIM, engine="xla", antithetic=True,
+    res = price_vasicek(OPT, dyn, SIM, antithetic=True,
                         tile_rows=8)
     want = bsv_call(100.0, 100.0, 1.0, 0.1, 0.2, 0.3, 0.05, 0.015, rho)
     _gate(res, want)
@@ -56,7 +56,7 @@ def test_equity_call_merton73_gate(rho):
 def test_degenerate_reduces_to_bs():
     """sigma_r ~ 0 AND b = r0: rates are constant, price is plain BS."""
     dyn = VasicekDynamics(a=0.3, b=0.1, sigma_r=1e-7, rho=0.0)
-    res = price_vasicek(OPT, dyn, SIM, engine="xla", antithetic=True,
+    res = price_vasicek(OPT, dyn, SIM, antithetic=True,
                         tile_rows=8)
     _gate(res, float(bs_call(100.0, 100.0, 1.0, 0.1, 0.2)))
 
@@ -64,7 +64,7 @@ def test_degenerate_reduces_to_bs():
 def test_put_call_parity_pathwise():
     """C - P on the SAME key is the discounted forward pathwise:
     equals S0 e^{-qT} - K P(0,T) within MC error of the forward."""
-    kw = dict(dyn=DEMO_VASICEK, sim=SIM, engine="xla", tile_rows=8)
+    kw = dict(dyn=DEMO_VASICEK, sim=SIM, tile_rows=8)
     c = price_vasicek(OPT, payoff="vanilla_call", **kw)
     p = price_vasicek(OPT, payoff="vanilla_put", **kw)
     want = 100.0 - 100.0 * vasicek_zcb(0.1, 0.3, 0.05, 0.015, 1.0)
@@ -77,7 +77,7 @@ def test_rho_monotonicity():
     """Equity/rate correlation feeds the forward's total variance:
     call value increases with rho (Sigma^2 has +2 rho sigma_s sigma_r
     (T-B)/a)."""
-    kw = dict(sim=SIM, engine="xla", antithetic=True, tile_rows=8)
+    kw = dict(sim=SIM, antithetic=True, tile_rows=8)
     lo = price_vasicek(OPT, VasicekDynamics(rho=-0.9), **kw)
     hi = price_vasicek(OPT, VasicekDynamics(rho=0.9), **kw)
     # closed-form spread is ~0.4; MC with shared-stream antithetic at
@@ -95,22 +95,10 @@ def test_path_dependent_payoffs_run():
     positive under stochastic discounting."""
     sim = SimParams(n_paths=20_000, n_steps=8)
     b = price_vasicek(OptionParams(p1=1.0, p2=6.0), DEMO_VASICEK, sim,
-                      payoff="bullet_call", engine="xla", tile_rows=8)
-    a = price_vasicek(OPT, DEMO_VASICEK, sim, payoff="asian_call",
-                      engine="xla", tile_rows=8)
+                      payoff="bullet_call", tile_rows=8)
+    a = price_vasicek(OPT, DEMO_VASICEK, sim, payoff="asian_call", tile_rows=8)
     assert float(b.price) > 0 and float(a.price) > 0
     assert float(b.stderr) > 0 and float(a.stderr) > 0
-
-
-def test_engines_bitwise():
-    sim = SimParams(n_paths=50_000, n_steps=8)
-    for payoff in ("zcb", "vanilla_call"):
-        a = price_vasicek(OPT, DEMO_VASICEK, sim, payoff, engine="pallas",
-                          tile_rows=8)
-        b = price_vasicek(OPT, DEMO_VASICEK, sim, payoff, engine="xla",
-                          tile_rows=8)
-        assert float(a.price) == float(b.price), payoff
-        assert float(a.stderr) == float(b.stderr), payoff
 
 
 def test_odd_steps_rejected():
@@ -123,6 +111,6 @@ def test_zcb_payoff_under_gbm_engines():
     (deterministic payoff of 1)."""
     from mc_tpu import price
     res = price(OPT, SimParams(n_paths=8192, n_steps=2), payoff="zcb",
-                method="terminal", engine="xla", tile_rows=8)
+                method="terminal", tile_rows=8)
     assert float(res.price) == pytest.approx(math.exp(-0.1), rel=1e-6)
     assert float(res.stderr) == 0.0

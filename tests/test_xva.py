@@ -16,7 +16,7 @@ def res():
     # vanilla_call explicitly: price_nmc's default bullet payoff is
     # identically zero at 8 steps (window > n_steps), which would make
     # every metric gate below pass vacuously
-    return price_nmc(OptionParams(), SIM, "vanilla_call", engine="xla")
+    return price_nmc(OptionParams(), SIM, "vanilla_call")
 
 
 def test_long_call_has_no_negative_exposure(res):
@@ -81,8 +81,8 @@ def test_short_book_dva_mirrors_long_cva():
     """A short position's DVA is the long position's CVA on the same
     (CRN) scenarios — the surfaces are exact negations."""
     opt = OptionParams(k=np.array([100.0], np.float32))
-    long_b = price_nmc_book(opt, SIM, weights=[1.0], engine="xla")
-    short_b = price_nmc_book(opt, SIM, weights=[-1.0], engine="xla")
+    long_b = price_nmc_book(opt, SIM, weights=[1.0])
+    short_b = price_nmc_book(opt, SIM, weights=[-1.0])
     assert float(short_b.cva(0.02)) == 0.0
     assert float(short_b.dva(0.02)) == pytest.approx(
         float(long_b.cva(0.02)), rel=1e-6)
@@ -97,7 +97,7 @@ def test_two_way_csa_own_threshold():
     """Short book + two-way CSA: WE post collateral, so the
     counterparty's exposure (our DVA side) collapses."""
     opt = OptionParams(k=np.array([100.0], np.float32))
-    short_b = price_nmc_book(opt, SIM, weights=[-1.0], engine="xla")
+    short_b = price_nmc_book(opt, SIM, weights=[-1.0])
     c = short_b.collateralized(threshold=0.0, own_threshold=0.0,
                                mta=0.0, mpor_steps=0)
     assert float(c.dva(0.02)) == 0.0
@@ -122,8 +122,7 @@ def test_cva_greeks_match_crn_fd():
 
     def cva_at(**kw):
         o = dataclasses.replace(OptionParams().as_f32(), **kw)
-        return float(price_nmc(o, SIM, "vanilla_call",
-                               engine="xla").cva(0.02, t_horizon=1.0))
+        return float(price_nmc(o, SIM, "vanilla_call").cva(0.02, t_horizon=1.0))
 
     h = 0.05
     fd_delta = (cva_at(s0=100 + h) - cva_at(s0=100 - h)) / (2 * h)
@@ -143,9 +142,8 @@ def test_cva_wwr_spot_sign_flips_with_position():
     case the exposure-linked model cannot express (it loads default
     weight onto high-exposure states regardless of position)."""
     sim = SimParams(n_paths=2048, n_steps=8, n_paths_inner=16)
-    call = price_nmc(OptionParams(), sim, "vanilla_call",
-                     strategy="grid")
-    put = price_nmc(OptionParams(), sim, "vanilla_put", strategy="grid")
+    call = price_nmc(OptionParams(), sim, "vanilla_call")
+    put = price_nmc(OptionParams(), sim, "vanilla_put")
     for res in (call, put):
         flat = float(res.cva(0.02))
         # f32: per-path accumulation vs the EE-profile closed form
@@ -160,9 +158,13 @@ def test_cva_wwr_spot_sign_flips_with_position():
 
 
 def test_cva_wwr_spot_needs_the_grid_strategy():
-    res = price_nmc(OptionParams(), SIM, "vanilla_call", engine="xla")
-    with pytest.raises(ValueError, match="grid"):
-        res.cva_wwr_spot(0.02, 1.0)
+    """The spot link reads the outer spot grid: `price_nmc` always
+    carries it, and a result without it refuses."""
+    import dataclasses
+    res = price_nmc(OptionParams(), SIM, "vanilla_call")
+    assert res.spot_matrix().shape == res.surface_matrix().shape
+    with pytest.raises(ValueError, match="spot grid"):
+        dataclasses.replace(res, spot_surface=None).cva_wwr_spot(0.02, 1.0)
 
 
 def test_cva_wwr_spot_family_surface():
@@ -170,8 +172,7 @@ def test_cva_wwr_spot_family_surface():
     result too (grid 0 is the market spot for every family)."""
     from mc_tpu.nmc_heston import price_nmc_heston
     sim = SimParams(n_paths=1024, n_steps=8, n_paths_inner=8)
-    res = price_nmc_heston(sim=sim, payoff="vanilla_call",
-                           strategy="grid")
+    res = price_nmc_heston(sim=sim, payoff="vanilla_call")
     assert float(res.cva_wwr_spot(0.02, 2.0)) > float(res.cva(0.02))
 
 
@@ -193,8 +194,7 @@ def test_family_cva_greeks_heston_crn_fd():
     def cva_at(opt_kw=None, dyn_kw=None):
         o = dataclasses.replace(OptionParams().as_f32(), **(opt_kw or {}))
         d = dataclasses.replace(DEMO_HESTON.as_f32(), **(dyn_kw or {}))
-        return float(price_nmc_heston(o, d, sim, "vanilla_call",
-                                      engine="xla").cva(0.02,
+        return float(price_nmc_heston(o, d, sim, "vanilla_call").cva(0.02,
                                                         t_horizon=1.0))
 
     h = 0.05

@@ -1,12 +1,8 @@
-"""Compiled-device gate for the curve-rates stack (round-4, VERDICT r03
-item 3): swaption (Vasicek), Hull-White, and G2++ entry points executed
-on the REAL chip.
+"""Compiled-device gate for the curve-rates stack: swaption (Vasicek),
+Hull-White, and G2++ entry points executed on the GPU.
 
-The rates models default to plain XLA (few exact date-grid draws, not
-step-loop bound); round 4 adds opt-in FUSED Mosaic engines for the
-European swaptions (`engine="pallas"|"xla"` — see the parity tests at
-the bottom), and the device measurement in BASELINE.md "Curve rates"
-decides the production default.  The device gate is:
+The rates models are plain XLA (few exact date-grid draws, not
+step-loop bound).  The device gate is:
 
 * statistical agreement with the f64 HOST oracles (Jamshidian /
   conditional-Jamshidian), |z| < 4 — the compiled-f32 device program
@@ -25,6 +21,8 @@ program (statistical) plus device-internal bitwise identities.
 
 import numpy as np
 import pytest
+
+pytestmark = pytest.mark.gpu
 
 from mc_tpu import SimParams, oracle
 from mc_tpu.models.hullwhite import DEMO_CURVE, DEMO_HW
@@ -215,69 +213,3 @@ def test_g2_swap_exposure_strip_anchor():
     se0 = float(e.values.std(axis=0)[0]) / np.sqrt(e.values.shape[0])
     assert abs(ee[0] - ref0) < 5.0 * se0 + 1e-5
     assert float(e.cva(0.02)) > 0.0
-
-
-# --- fused-engine Mosaic parity (round 4; tolerance round 5) --------------
-# The fused European swaption kernels are the one place the rates stack
-# has a compiled Mosaic lowering: close the compiled ~= interpret == XLA
-# triangle on the chip (the CPU suite proves interpret == XLA).
-#
-# interpret == XLA stays BITWISE (same trace, same backend ops).  The
-# COMPILED Mosaic result is held to <= ~4 ulp instead: round-5 bisection
-# showed Mosaic's fma contraction is context-dependent — with every
-# intermediate materialized to VMEM outputs the compiled kernel matches
-# XLA bit-for-bit on all 8192 paths, but in the fused kernel the
-# instruction selection around the transcendental internals (exp /
-# inv_normal_cdf polynomial chains) drifts 1 ulp on ~15% of paths
-# (observed first on the G2 kernel; guarding every user-level mul-into-
-# add with an opaque *1.0 did not change the diff count, locating the
-# contraction inside the lowered transcendentals, unreachable from user
-# code).  The classic path kernels keep their bitwise gate: their
-# Box-Muller/exp chains happen to codegen stably, asserted elsewhere in
-# this suite.
-
-_REL_4ULP = 5e-7  # ~4 ulp at f32: the documented compiled-Mosaic bound
-
-
-def _assert_fused_triangle(c, i, x):
-    assert float(i.price) == float(x.price)          # bitwise dual
-    assert float(i.stderr) == float(x.stderr)
-    assert float(c.price) == pytest.approx(float(x.price),
-                                           rel=_REL_4ULP)
-    assert float(c.stderr) == pytest.approx(float(x.stderr),
-                                            rel=_REL_4ULP)
-    assert float(c.stderr) > 0.0
-
-
-def test_hw_fused_engine_mosaic_parity():
-    from mc_tpu.models.hullwhite import price_hw_swaption
-    kw = dict(sim=SimParams(n_paths=8192, n_steps=1), tile_rows=8)
-    c = price_hw_swaption(SPEC, DEMO_HW, DEMO_CURVE, engine="pallas",
-                          interpret=False, **kw)
-    i = price_hw_swaption(SPEC, DEMO_HW, DEMO_CURVE, engine="pallas",
-                          interpret=True, **kw)
-    x = price_hw_swaption(SPEC, DEMO_HW, DEMO_CURVE, engine="xla", **kw)
-    _assert_fused_triangle(c, i, x)
-
-
-def test_g2_fused_engine_mosaic_parity():
-    from mc_tpu.models.g2pp import DEMO_G2, price_g2_swaption
-    kw = dict(sim=SimParams(n_paths=8192, n_steps=1), tile_rows=8)
-    c = price_g2_swaption(SPEC, DEMO_G2, DEMO_CURVE, engine="pallas",
-                          interpret=False, **kw)
-    i = price_g2_swaption(SPEC, DEMO_G2, DEMO_CURVE, engine="pallas",
-                          interpret=True, **kw)
-    x = price_g2_swaption(SPEC, DEMO_G2, DEMO_CURVE, engine="xla", **kw)
-    _assert_fused_triangle(c, i, x)
-
-
-def test_vasicek_fused_engine_mosaic_parity():
-    from mc_tpu.models.swaption import price_swaption
-    kw = dict(sim=SimParams(n_paths=8192, n_steps=1), tile_rows=8,
-              r0=R0)
-    c = price_swaption(SPEC, VDYN, engine="pallas", interpret=False,
-                       **kw)
-    i = price_swaption(SPEC, VDYN, engine="pallas", interpret=True,
-                       **kw)
-    x = price_swaption(SPEC, VDYN, engine="xla", **kw)
-    _assert_fused_triangle(c, i, x)
